@@ -1,0 +1,438 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``pathway_tpu_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Builds the port's hand-written kernels from ``pathway_tpu_torch/csrc``,
+holds each against its plain PyTorch version on the card, then drives the
+live-RAG embed -> index -> retrieve path at the flagship encoder's full
+width (vocab 32768, d_model 384, 6 heads, 6 layers, d_ff 1536, seq 64,
+embed_dim 384; random weights from a seed): 1,048,576 docs encoded in
+16384-row batches into a ``VectorSlabIndex`` on the card, a few thousand
+texts of the repo's own documentation through ``TorchEmbedder`` (bulk and
+coalesced), self-retrieval over the 1M-doc slab, exact and int8 search
+timed. Each phase prints one JSON line; the line before the last is the
+kernel table, the last is the result. Any failure exits non-zero. Without
+a CUDA device, or without the package beside it, it exits non-zero too.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+# NVIDIA H100 SXM data sheet: HBM3 rate and dense bf16 tensor-core rate
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+
+FLAGSHIP = dict(
+    vocab_size=32768, d_model=384, n_heads=6, n_layers=6, d_ff=1536,
+    max_len=64, embed_dim=384,
+)
+N_DOCS = 1 << 20  # the 1M-doc scale of the KNN target
+DOC_BATCH, DOC_SEQ = 16384, 64  # bench.py's encoder batch
+N_QUERIES, TOP_K = 16, 10
+# (label, b, s, d, n_heads): the flagship encoder's embed batch and the
+# default TorchEmbedder's widest bucket
+ATTENTION_SHAPES = [
+    ("flagship", 16384, 64, 384, 6),
+    ("embedder_default", 4096, 128, 256, 8),
+]
+# kernel vs plain: the same bf16 inputs and f32 sums; a sum in another
+# order can flip one bf16 rounding of a probability or of ctx, so the
+# bound is one bf16 ulp at |ctx| < 8 (unit-normal qkv keeps |ctx| < 8)
+ATTENTION_ATOL = 2.0**-5
+TEXT_FILES = ["docs/*.md", "SURVEY.md", "PAPER.md", "VERDICT.md", "BASELINE.md"]
+
+
+def emit(obj: dict) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def gpu_name_and_power() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip()
+    return out.splitlines()[0]
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Median device time of one call, over `reps` calls timed one by one
+    with CUDA events, after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def host_ms(fn, reps: int) -> float:
+    """Median host time of one call that ends in a synchronize."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def attention_bound(b: int, s: int, d: int, h: int) -> tuple[float, str, int, int]:
+    """Least time the card could take for the kernel's work, in ms: qkv
+    and the mask read once, ctx written once, over the HBM rate; against
+    4*b*h*s*s*dh flops (q.k^T and p.v) over the bf16 tensor-core rate."""
+    nbytes = b * s * 3 * d * 2 + b * s * 4 + b * s * d * 2
+    flops = 4 * b * h * s * s * (d // h)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops) * 1e3, bound_by, nbytes, flops
+
+
+# ------------------------------------------------------------ phase 1
+
+
+def check_attention(label: str, b: int, s: int, d: int, h: int, seed: int) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from pathway_tpu_torch.ops.attention import fused_qkv_attention, reference_attention
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    qkv = torch.randn((b, s, 3 * d), generator=gen, device=dev).to(torch.bfloat16)
+    lens = torch.randint(1, s + 1, (b,), generator=gen, device=dev)
+    lens[::97] = 0  # rows whose keys are all padding, as bucket padding makes
+    mask = (torch.arange(s, device=dev)[None, :] < lens[:, None]).to(torch.int32)
+
+    out = fused_qkv_attention(qkv, mask, h)
+    torch.cuda.synchronize()
+    ref = reference_attention(qkv, mask, h)
+    err = (out.float() - ref.float()).abs().max().item()
+    finite = bool(torch.isfinite(out.float()).all())
+    ref_max = ref.float().abs().max().item()
+    # all-padding rows attend uniformly: ctx is the mean of v
+    pad_rows = (lens == 0).nonzero().flatten()
+    v_mean = qkv[pad_rows, :, 2 * d:].float().mean(dim=1, keepdim=True)
+    pad_err = (out[pad_rows].float() - v_mean).abs().max().item()
+
+    # one PyTorch call for the same function, timed as a yardstick only
+    q, k, v = (t.transpose(1, 2) for t in qkv.view(b, s, 3, h, d // h).unbind(2))
+    bias = torch.zeros((b, 1, 1, s), dtype=qkv.dtype, device=dev)
+    bias.masked_fill_(mask[:, None, None, :] == 0, -1e30)
+
+    def library():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+
+    lib_err = (library().transpose(1, 2).reshape(b, s, d).float() - ref.float()).abs().max().item()
+    ms = cuda_ms(lambda: fused_qkv_attention(qkv, mask, h), 30)
+    plain_ms = cuda_ms(lambda: reference_attention(qkv, mask, h), 20)
+    library_ms = cuda_ms(library, 20)
+    bound_ms, bound_by, nbytes, flops = attention_bound(b, s, d, h)
+    row = dict(
+        phase="attention", shape=label, b=b, s=s, d=d, n_heads=h,
+        max_abs_err=err, atol=ATTENTION_ATOL, finite=finite,
+        all_padding_rows=int(pad_rows.numel()), all_padding_err=pad_err,
+        library_err=lib_err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops,
+        achieved_gb_s=nbytes / (ms * 1e-3) / 1e9,
+    )
+    emit(row)
+    if not finite or ref_max >= 8 or err > ATTENTION_ATOL or pad_err > ATTENTION_ATOL:
+        raise AssertionError(f"attention kernel disagrees with its plain version: {row}")
+    del qkv, out, ref, q, k, v, bias
+    torch.cuda.empty_cache()
+    return row
+
+
+# ------------------------------------------------------------ phase 2
+
+
+def load_texts(root: Path, seed: int = 0) -> list[str]:
+    """A few thousand text chunks (6-20 words) of the repo's own docs."""
+    import numpy as np
+
+    words: list[str] = []
+    for pattern in TEXT_FILES:
+        for path in sorted(root.glob(pattern)):
+            words += path.read_text(encoding="utf-8").split()
+    rng = np.random.default_rng(seed)
+    texts, i = [], 0
+    while i < len(words):
+        n = int(rng.integers(6, 21))
+        texts.append(" ".join(words[i:i + n]))
+        i += n
+    return texts
+
+
+def profile_encode(emb, ids, mask) -> dict:
+    """Device time by kernel over two encode batches (torch.profiler),
+    against the host time of the same two batches (profiler start-up
+    excluded)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            emb.encode_tokens(ids, mask)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_kernel: dict[str, float] = {}
+    for ev in prof.key_averages():
+        if ev.self_device_time_total and str(ev.device_type).endswith("CUDA"):
+            by_kernel[ev.key] = by_kernel.get(ev.key, 0.0) + ev.self_device_time_total / 1e3
+    busy = sum(by_kernel.values())
+    if not busy:
+        return dict(window_ms=wall_ms, device_busy_ms="not measured")
+    by_class = {"attention_kernel": 0.0, "matmul": 0.0, "elementwise_and_reductions": 0.0}
+    for name, ms in by_kernel.items():
+        if "fused_qkv_attention" in name:
+            by_class["attention_kernel"] += ms
+        elif any(t in name for t in ("nvjet", "gemm", "cutlass", "sm90_xmma")):
+            by_class["matmul"] += ms
+        else:
+            by_class["elementwise_and_reductions"] += ms
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
+    return dict(
+        window_ms=wall_ms, device_busy_ms=busy, device_idle_share=1 - busy / wall_ms,
+        share_by_class={k: v / busy for k, v in by_class.items()},
+        top_kernels_ms=[[name[:90], ms] for name, ms in top],
+    )
+
+
+def run_slice(device, cfg_kw: dict, n_docs: int, batch: int, seq: int, root: Path) -> dict:
+    """The port's main path: encode `n_docs` seeded token rows and a few
+    thousand texts, index them, retrieve. Returns the numbers it read.
+    Runs on the CPU too (at a small size), for a rehearsal."""
+    import numpy as np
+    import torch
+
+    from pathway_tpu_torch import TorchEmbedder, VectorSlabIndex
+    from pathway_tpu_torch.models.transformer import embedder_config
+    from pathway_tpu_torch.ops import _build
+    from pathway_tpu_torch.ops.attention import KERNEL
+    from pathway_tpu_torch.ops.topk import knn_search, knn_search_masked, knn_search_quantized, quantize_docs
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    cfg = embedder_config(**cfg_kw)
+    emb = TorchEmbedder(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    ids = torch.randint(
+        2, cfg.vocab_size, (n_docs, seq), generator=torch.Generator(device=dev).manual_seed(1),
+        device=dev, dtype=torch.int32,
+    )
+    mask = torch.ones((batch, seq), dtype=torch.int32, device=dev)
+    vecs = torch.empty((n_docs, cfg.embed_dim), dtype=torch.float32, device=dev)
+
+    # -- the main path, with the launch counts read across it
+    _build.reset_launch_counts()
+    dispatches0 = emb.dispatches
+    emb.encode_tokens(ids[:batch], mask)  # warm-up: cuBLAS handles, caches
+    sync()
+    t0 = time.perf_counter()
+    for i in range(0, n_docs, batch):
+        vecs[i:i + batch] = emb.encode_tokens(ids[i:i + batch], mask)
+    sync()
+    encode_s = time.perf_counter() - t0
+    enc = dict(
+        phase="encode", docs=n_docs, batch=batch, seq=seq, seconds=encode_s,
+        embeddings_per_s=n_docs / encode_s,
+        finite=bool(torch.isfinite(vecs).all()),
+        norm_err=(torch.linalg.norm(vecs, dim=1) - 1).abs().max().item(),
+    )
+    if on_card:
+        enc["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        enc["profile"] = profile_encode(emb, ids[:batch], mask)
+    emit(enc)
+    if not enc["finite"] or enc["norm_err"] > 1e-3:
+        raise AssertionError(f"encoder output is not unit-norm and finite: {enc}")
+
+    host_vecs = vecs.cpu().numpy()
+    del vecs, ids
+    texts_raw = load_texts(root)
+    seen, texts = set(), []
+    for t in texts_raw:  # texts that tokenize alike would retrieve each other
+        tok = tuple(emb.tokenizer.tokenize(t))
+        if tok not in seen:
+            seen.add(tok)
+            texts.append(t)
+    index = VectorSlabIndex(dimensions=cfg.embed_dim, reserved_space=n_docs + len(texts), device=dev)
+    t0 = time.perf_counter()
+    for i in range(n_docs):
+        index.add(i, host_vecs[i])
+    add_s = time.perf_counter() - t0
+
+    # texts: bulk, then coalesced copies of a sample as the queries
+    t0 = time.perf_counter()
+    cap = emb._plane.buckets.max_rows  # encode_many takes one row bucket
+    text_vecs = []
+    for j in range(0, len(texts), cap):
+        text_vecs += emb.encode_many(texts[j:j + cap])
+    sync()
+    text_s = time.perf_counter() - t0
+    for j, v in enumerate(text_vecs):
+        index.add(n_docs + j, v, metadata={"text": j})
+    sample = list(range(0, len(texts), max(1, len(texts) // 512)))[:512]
+    flushes0 = emb._batcher.flushes
+
+    async def embed_all():
+        return await asyncio.gather(*(emb.embed(texts[j]) for j in sample))
+
+    t0 = time.perf_counter()
+    coalesced = asyncio.run(embed_all())
+    embed_s = time.perf_counter() - t0
+    flushes = emb._batcher.flushes - flushes0
+    cos = [float(np.dot(coalesced[n], text_vecs[j])) for n, j in enumerate(sample)]
+
+    hits = 0
+    for g in range(0, len(sample), N_QUERIES):
+        got = index.search_batch([(coalesced[n], TOP_K, None) for n in range(g, min(g + N_QUERIES, len(sample)))])
+        hits += sum(m[0][0] == n_docs + sample[g + r] for r, m in enumerate(got))
+    texts_row = dict(
+        phase="texts", texts=len(texts), encode_many_s=text_s, add_docs_s=add_s,
+        coalesced=len(sample), coalesced_flushes=flushes, coalesced_s=embed_s,
+        coalesced_vs_bulk_min_cos=min(cos), self_top1=hits, indexed=len(index),
+    )
+    emit(texts_row)
+    if hits != len(sample) or min(cos) < 0.999 or flushes != 1:
+        raise AssertionError(f"self-retrieval or coalescing failed: {texts_row}")
+
+    # -- retrieval over the slab: 16 text queries, exact and int8 layouts
+    qsel = sample[:N_QUERIES]
+    qvecs = np.stack([coalesced[n] for n in range(len(qsel))])
+    items = [(q, TOP_K, None) for q in qvecs]
+    docs_t, valid_t = index.device_docs()
+    qt = torch.from_numpy(qvecs).to(dev)
+    timer = host_ms if on_card else _cpu_ms
+    search_batch_ms = timer(lambda: index.search_batch(items), 30)
+    masked_ms = timer(lambda: knn_search_masked(qt, docs_t, valid_t, TOP_K, "cos"), 30)
+    n_live = index.n_slots
+    qdocs = quantize_docs(docs_t[:n_live])
+    quant = knn_search_quantized(qt, qdocs, TOP_K)
+    quant_ms = timer(lambda: knn_search_quantized(qt, qdocs, TOP_K), 30)
+    exact = knn_search(qt, qdocs.full, TOP_K, "cos", normalized=True)
+    qi, ei = quant.indices.cpu().numpy(), exact.indices.cpu().numpy()
+    recall = float(np.mean([len(set(qi[r]) & set(ei[r])) / TOP_K for r in range(len(qsel))]))
+    quant_self = int(sum(qi[r][0] == n_docs + j for r, j in enumerate(qsel)))
+    sb = index.search_batch(items)
+    exact_self = int(sum(m[0][0] == n_docs + j for m, j in zip(sb, qsel)))
+    launches = _build.LAUNCHES.get(KERNEL, 0)
+    dispatches = emb.dispatches - dispatches0
+    knn = dict(
+        phase="knn", slab_rows=int(docs_t.shape[0]), live=n_live, queries=len(qsel), k=TOP_K,
+        search_batch_p50_ms=search_batch_ms, knn_search_masked_p50_ms=masked_ms,
+        knn_search_quantized_p50_ms=quant_ms, quantized_recall_at_10=recall,
+        exact_self_top1=exact_self, quantized_self_top1=quant_self,
+        attention_launches=launches, encoder_dispatches=dispatches, n_layers=cfg.n_layers,
+    )
+    emit(knn)
+    if exact_self != len(qsel) or quant_self != len(qsel):
+        raise AssertionError(f"retrieval over the slab missed a self-query: {knn}")
+    if on_card and (launches <= 0 or launches != cfg.n_layers * dispatches):
+        raise AssertionError(
+            f"the main path did not go through the attention kernel: {launches} launches "
+            f"for {dispatches} encoder dispatches x {cfg.n_layers} layers"
+        )
+    return dict(encode=enc, texts=texts_row, knn=knn, launches=launches)
+
+
+def _cpu_ms(fn, reps: int) -> float:
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+# ------------------------------------------------------------------ main
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available; this run needs one NVIDIA card",
+              file=sys.stderr)
+        return 2
+    if not (ROOT / "pathway_tpu_torch" / "__init__.py").is_file():
+        print(f"chip_smoke: the pathway_tpu_torch package is not beside {__file__}",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from pathway_tpu_torch.ops import _build
+
+    # f32 products in full f32: no TF32 anywhere in the comparisons
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    t_start = time.perf_counter()
+    card = gpu_name_and_power()
+    print(card, flush=True)
+    t0 = time.perf_counter()
+    libs = _build.build()
+    build_s = time.perf_counter() - t0
+    ptxas = {
+        name: [ln.strip() for ln in path.with_suffix(".log").read_text().splitlines()
+               if "registers" in ln or "spill" in ln]
+        for name, path in libs.items()
+    }
+    emit(dict(
+        phase="device", card=card, kind=torch.cuda.get_device_name(0),
+        count=torch.cuda.device_count(), torch=torch.__version__, cuda=torch.version.cuda,
+        build_s=build_s, libraries={k: str(v.relative_to(ROOT)) for k, v in libs.items()},
+        ptxas=ptxas,
+    ))
+
+    rows = [check_attention(label, b, s, d, h, seed=i) for i, (label, b, s, d, h) in enumerate(ATTENTION_SHAPES)]
+    main_shape = rows[0]
+
+    result = run_slice("cuda", FLAGSHIP, N_DOCS, DOC_BATCH, DOC_SEQ, ROOT)
+    emit(dict(phase="total", seconds=time.perf_counter() - t_start, card=card))
+
+    print(json.dumps({"kernels": [dict(
+        name="fused_qkv_attention", route="cuda",
+        source="pathway_tpu_torch/csrc/attention.cu",
+        replaces="pathway_tpu/ops/attention.py:38",
+        launches=result["launches"],
+        max_abs_err=max(r["max_abs_err"] for r in rows),
+        ms=main_shape["ms"], plain_ms=main_shape["plain_ms"],
+        bound_ms=main_shape["bound_ms"], bound_by=main_shape["bound_by"],
+        library_ms=main_shape["library_ms"],
+    )]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

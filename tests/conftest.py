@@ -36,3 +36,7 @@ def pytest_configure(config):
         "markers",
         "slow: long-running test, excluded from tier-1 (-m 'not slow')",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (a CUDA kernel has no CPU mode); skips without one",
+    )
