@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Builds the port's hand-written kernels from ``pathway_tpu_torch/csrc``,
-holds each against its plain PyTorch version on the card, then drives the
+holds each against its plain PyTorch version on the card (timed at the main
+path's two shapes, checked at every tiling and at ragged lengths), then drives the
 live-RAG embed -> index -> retrieve path at the flagship encoder's full
 width (vocab 32768, d_model 384, 6 heads, 6 layers, d_ff 1536, seq 64,
 embed_dim 384; random weights from a seed): 1,048,576 docs encoded in
@@ -39,12 +40,29 @@ FLAGSHIP = dict(
 N_DOCS = 1 << 20  # the 1M-doc scale of the KNN target
 DOC_BATCH, DOC_SEQ = 16384, 64  # bench.py's encoder batch
 N_QUERIES, TOP_K = 16, 10
-# (label, b, s, d, n_heads): the flagship encoder's embed batch and the
-# default TorchEmbedder's widest bucket
+# (label, b, s, d, n_heads), timed: the flagship encoder's embed batch, the
+# default TorchEmbedder's widest bucket, and the flagship width at the short
+# buckets (s 16 and 32) that the texts phase's chunks fall into
 ATTENTION_SHAPES = [
     ("flagship", 16384, 64, 384, 6),
     ("embedder_default", 4096, 128, 256, 8),
+    ("flagship_s32", 16384, 32, 384, 6),
+    ("flagship_s16", 16384, 16, 384, 6),
 ]
+# checked, not timed: the other tilings of the kernel (s 16 and 32 with a
+# batch that is not a multiple of 4, s 128 at dh 64 is its largest tile) and
+# ragged s at both head dims
+ATTENTION_CHECK_SHAPES = [
+    ("s16_dh64", 4097, 16, 384, 6),
+    ("s32_dh64", 4097, 32, 384, 6),
+    ("s128_dh64", 2048, 128, 384, 6),
+    ("s40_dh64", 2048, 40, 384, 6),
+    ("s40_dh32", 2048, 40, 256, 8),
+    ("s100_dh64", 2048, 100, 384, 6),
+    ("s100_dh32", 2048, 100, 256, 8),
+]
+# every shape is checked on this many seeded inputs, the first one timed
+ATTENTION_SEEDS = 3
 # kernel vs plain: the same bf16 inputs and f32 sums; a sum in another
 # order can flip one bf16 rounding of a probability or of ctx, so the
 # bound is one bf16 ulp at |ctx| < 8 (unit-normal qkv keeps |ctx| < 8)
@@ -112,55 +130,77 @@ def attention_bound(b: int, s: int, d: int, h: int) -> tuple[float, str, int, in
 # ------------------------------------------------------------ phase 1
 
 
-def check_attention(label: str, b: int, s: int, d: int, h: int, seed: int) -> dict:
+def attention_case(b: int, s: int, d: int, seed: int):
+    """Seeded unit-normal bf16 qkv and a mask with random lengths, every
+    97th row all padding (as bucket padding makes)."""
     import torch
-    import torch.nn.functional as F
-
-    from pathway_tpu_torch.ops.attention import fused_qkv_attention, reference_attention
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     qkv = torch.randn((b, s, 3 * d), generator=gen, device=dev).to(torch.bfloat16)
     lens = torch.randint(1, s + 1, (b,), generator=gen, device=dev)
-    lens[::97] = 0  # rows whose keys are all padding, as bucket padding makes
+    lens[::97] = 0
     mask = (torch.arange(s, device=dev)[None, :] < lens[:, None]).to(torch.int32)
+    return qkv, mask, lens
 
-    out = fused_qkv_attention(qkv, mask, h)
-    torch.cuda.synchronize()
-    ref = reference_attention(qkv, mask, h)
-    err = (out.float() - ref.float()).abs().max().item()
-    finite = bool(torch.isfinite(out.float()).all())
-    ref_max = ref.float().abs().max().item()
-    # all-padding rows attend uniformly: ctx is the mean of v
-    pad_rows = (lens == 0).nonzero().flatten()
-    v_mean = qkv[pad_rows, :, 2 * d:].float().mean(dim=1, keepdim=True)
-    pad_err = (out[pad_rows].float() - v_mean).abs().max().item()
 
-    # one PyTorch call for the same function, timed as a yardstick only
-    q, k, v = (t.transpose(1, 2) for t in qkv.view(b, s, 3, h, d // h).unbind(2))
-    bias = torch.zeros((b, 1, 1, s), dtype=qkv.dtype, device=dev)
-    bias.masked_fill_(mask[:, None, None, :] == 0, -1e30)
+def check_attention(label: str, b: int, s: int, d: int, h: int, seed: int, timed: bool) -> dict:
+    """The kernel against its plain version on ATTENTION_SEEDS seeded bf16
+    inputs with random padding and all-padding rows; with `timed`, also the
+    times of the kernel, the plain version and SDPA on the first."""
+    import torch
+    import torch.nn.functional as F
 
-    def library():
-        return F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+    from pathway_tpu_torch.ops.attention import fused_qkv_attention, reference_attention
 
-    lib_err = (library().transpose(1, 2).reshape(b, s, d).float() - ref.float()).abs().max().item()
-    ms = cuda_ms(lambda: fused_qkv_attention(qkv, mask, h), 30)
-    plain_ms = cuda_ms(lambda: reference_attention(qkv, mask, h), 20)
-    library_ms = cuda_ms(library, 20)
-    bound_ms, bound_by, nbytes, flops = attention_bound(b, s, d, h)
+    errs, pad_errs, finite, ref_max, n_pad = [], [], True, 0.0, 0
+    for i in range(ATTENTION_SEEDS):
+        qkv, mask, lens = attention_case(b, s, d, seed + 1000 * i)
+        out = fused_qkv_attention(qkv, mask, h)
+        torch.cuda.synchronize()
+        ref = reference_attention(qkv, mask, h)
+        errs.append((out.float() - ref.float()).abs().max().item())
+        finite = finite and bool(torch.isfinite(out.float()).all())
+        ref_max = max(ref_max, ref.float().abs().max().item())
+        # all-padding rows attend uniformly: ctx is the mean of v
+        pad_rows = (lens == 0).nonzero().flatten()
+        v_mean = qkv[pad_rows, :, 2 * d:].float().mean(dim=1, keepdim=True)
+        pad_errs.append((out[pad_rows].float() - v_mean).abs().max().item())
+        n_pad += int(pad_rows.numel())
+        del qkv, mask, out, ref
+    err, pad_err = max(errs), max(pad_errs)
+
     row = dict(
-        phase="attention", shape=label, b=b, s=s, d=d, n_heads=h,
-        max_abs_err=err, atol=ATTENTION_ATOL, finite=finite,
-        all_padding_rows=int(pad_rows.numel()), all_padding_err=pad_err,
-        library_err=lib_err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-        bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops,
-        achieved_gb_s=nbytes / (ms * 1e-3) / 1e9,
+        phase="attention" if timed else "attention_check", shape=label, b=b, s=s, d=d,
+        n_heads=h, max_abs_err=err, max_abs_err_by_seed=errs, atol=ATTENTION_ATOL,
+        finite=finite, all_padding_rows=n_pad, all_padding_err=pad_err,
     )
+    if timed:
+        # timed on the first seed's inputs
+        qkv, mask, _ = attention_case(b, s, d, seed)
+        ref = reference_attention(qkv, mask, h)
+        # one PyTorch call for the same function, timed as a yardstick only
+        q, k, v = (t.transpose(1, 2) for t in qkv.view(b, s, 3, h, d // h).unbind(2))
+        bias = torch.zeros((b, 1, 1, s), dtype=qkv.dtype, device=qkv.device)
+        bias.masked_fill_(mask[:, None, None, :] == 0, -1e30)
+
+        def library():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+
+        lib_err = (library().transpose(1, 2).reshape(b, s, d).float() - ref.float()).abs().max().item()
+        ms = cuda_ms(lambda: fused_qkv_attention(qkv, mask, h), 30)
+        plain_ms = cuda_ms(lambda: reference_attention(qkv, mask, h), 20)
+        library_ms = cuda_ms(library, 20)
+        bound_ms, bound_by, nbytes, flops = attention_bound(b, s, d, h)
+        row.update(
+            library_err=lib_err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+            bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops,
+            achieved_gb_s=nbytes / (ms * 1e-3) / 1e9,
+        )
+        del qkv, mask, ref, q, k, v, bias
     emit(row)
     if not finite or ref_max >= 8 or err > ATTENTION_ATOL or pad_err > ATTENTION_ATOL:
         raise AssertionError(f"attention kernel disagrees with its plain version: {row}")
-    del qkv, out, ref, q, k, v, bias
     torch.cuda.empty_cache()
     return row
 
@@ -411,7 +451,10 @@ def main() -> int:
         ptxas=ptxas,
     ))
 
-    rows = [check_attention(label, b, s, d, h, seed=i) for i, (label, b, s, d, h) in enumerate(ATTENTION_SHAPES)]
+    rows = [check_attention(label, b, s, d, h, seed=i, timed=True)
+            for i, (label, b, s, d, h) in enumerate(ATTENTION_SHAPES)]
+    rows += [check_attention(label, b, s, d, h, seed=100 + i, timed=False)
+             for i, (label, b, s, d, h) in enumerate(ATTENTION_CHECK_SHAPES)]
     main_shape = rows[0]
 
     result = run_slice("cuda", FLAGSHIP, N_DOCS, DOC_BATCH, DOC_SEQ, ROOT)

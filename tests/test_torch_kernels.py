@@ -59,21 +59,51 @@ def test_build_key_covers_source_and_flags():
     assert p == _build.library_path("attention")  # stable for unchanged input
 
 
+# (b, s, d, h): the two main-path shapes cut in batch, s 16 and 32, s 128 at
+# dh 64, ragged s at both head dims, and odd batch and head counts
+CARD_SHAPES = [
+    (64, 64, 384, 6), (32, 128, 256, 8), (8, 16, 64, 2),
+    (5, 16, 192, 3), (7, 32, 128, 2), (16, 128, 384, 6),
+    (16, 40, 384, 6), (16, 40, 256, 8), (9, 100, 384, 6), (9, 100, 256, 8),
+    (3, 1, 64, 2), (4, 17, 96, 3),
+]
+
+
 @pytest.mark.cuda
-def test_kernel_matches_plain_on_card(cuda_device):
+@pytest.mark.parametrize("seed", [4, 5, 6])
+@pytest.mark.parametrize("b,s,d,h", CARD_SHAPES)
+def test_kernel_matches_plain_on_card(cuda_device, b, s, d, h, seed):
     """On the card: the kernel against the plain version, bf16, with
     random padding and an all-padding row; one bf16 ulp at |ctx| < 4."""
-    for b, s, d, h in [(64, 64, 384, 6), (32, 128, 256, 8), (8, 16, 64, 2)]:
-        qkv, mask = _qkv_case(4, b, s, d)
-        q = torch.from_numpy(qkv).to(cuda_device, torch.bfloat16)
-        m = torch.from_numpy(mask).to(cuda_device)
-        _build.reset_launch_counts()
-        out = tattn.fused_qkv_attention(q, m, h)
-        torch.cuda.synchronize()
-        assert _build.LAUNCHES[tattn.KERNEL] == 1
-        ref = tattn.reference_attention(q, m, h)
-        assert torch.isfinite(out.float()).all()
-        assert (out.float() - ref.float()).abs().max().item() <= 2.0**-6
+    qkv, mask = _qkv_case(seed, b, s, d)
+    q = torch.from_numpy(qkv).to(cuda_device, torch.bfloat16)
+    m = torch.from_numpy(mask).to(cuda_device)
+    _build.reset_launch_counts()
+    out = tattn.fused_qkv_attention(q, m, h)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[tattn.KERNEL] == 1
+    ref = tattn.reference_attention(q, m, h)
+    assert torch.isfinite(out.float()).all()
+    assert (out.float() - ref.float()).abs().max().item() <= 2.0**-6
+    # row 0 is all padding: the mean of its s keys of v
+    v_mean = q[0, :, 2 * d:].float().mean(dim=0)
+    assert (out[0].float() - v_mean).abs().max().item() <= 2.0**-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,d,h", [(64, 384, 6), (128, 256, 8), (40, 128, 2)])
+def test_kernel_all_padding_batch_has_no_nan(cuda_device, s, d, h):
+    """Every row all padding: each row of ctx is the mean of its s keys
+    of v, with no NaN and nothing from keys past s."""
+    qkv, _ = _qkv_case(5, 6, s, d)
+    q = torch.from_numpy(qkv).to(cuda_device, torch.bfloat16)
+    m = torch.zeros((6, s), dtype=torch.int32, device=cuda_device)
+    out = tattn.fused_qkv_attention(q, m, h)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    v_mean = q[:, :, 2 * d:].float().mean(dim=1, keepdim=True)
+    assert (out.float() - v_mean).abs().max().item() <= 2.0**-6
+    torch.testing.assert_close(out, tattn.reference_attention(q, m, h), rtol=0, atol=2.0**-6)
 
 
 @pytest.mark.cuda

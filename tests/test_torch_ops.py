@@ -36,7 +36,17 @@ def _qkv_case(seed: int, b: int, s: int, d: int):
 # ------------------------------------------------------------- attention
 
 
-@pytest.mark.parametrize("b,s,d,h", [(8, 16, 32, 4), (4, 32, 64, 2), (6, 16, 64, 1)])
+# (b, s, d, h): the kernel's tilings at both head dims (s 16 to 128, 16 rows
+# a warp) and a ragged s (40) whose keys past s the kernel must drop; row 0
+# of every case is all padding
+ATTENTION_SHAPES = [
+    (8, 16, 32, 4), (4, 32, 64, 2), (6, 16, 64, 1),
+    (4, 64, 256, 4), (4, 64, 128, 4), (2, 128, 128, 2), (2, 128, 64, 2),
+    (4, 40, 128, 2), (4, 40, 64, 2),
+]
+
+
+@pytest.mark.parametrize("b,s,d,h", ATTENTION_SHAPES)
 def test_reference_attention_f32_matches_jax(b, s, d, h):
     """f32: the port's plain attention equals JAX's reference and the
     Pallas kernel in interpret mode to atol 1e-5 (f32 sums in another
@@ -51,11 +61,13 @@ def test_reference_attention_f32_matches_jax(b, s, d, h):
     np.testing.assert_allclose(port.numpy(), np.asarray(pallas), atol=1e-5)
 
 
-def test_reference_attention_bf16_matches_jax():
+@pytest.mark.parametrize(
+    "b,s,d,h", [(8, 32, 64, 2), (4, 16, 128, 2), (2, 128, 64, 2), (4, 40, 128, 2), (2, 100, 64, 2)]
+)
+def test_reference_attention_bf16_matches_jax(b, s, d, h):
     """bf16: probabilities and ctx round to bf16 in both frameworks at
     the same points; an f32 sum in another order can flip one rounding,
     so the bound is one bf16 ulp at |ctx| < 4 (2**-6)."""
-    b, s, d, h = 8, 32, 64, 2
     qkv, mask = _qkv_case(1, b, s, d)
     qkv = _bf16_np(qkv)
     port = tattn.reference_attention(
@@ -69,10 +81,12 @@ def test_reference_attention_bf16_matches_jax():
     )
 
 
-def test_all_padding_row_is_uniform_mean_of_v():
+@pytest.mark.parametrize("s,d,h", [(16, 32, 4), (40, 128, 2), (100, 64, 2)])
+def test_all_padding_row_is_uniform_mean_of_v(s, d, h):
     """-1e30 on every key gives equal scores: the row attends uniformly
-    (the mean of v), with no NaN, as the JAX reference and the kernel."""
-    b, s, d, h = 2, 16, 32, 4
+    (the mean of its s keys of v, at a ragged s too), with no NaN, as the
+    JAX reference and the kernel."""
+    b = 2
     qkv, _ = _qkv_case(2, b, s, d)
     mask = np.zeros((b, s), np.int32)
     mask[1] = 1
