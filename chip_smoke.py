@@ -12,8 +12,14 @@ embed_dim 384; random weights from a seed): 1,048,576 docs encoded in
 16384-row batches into a ``VectorSlabIndex`` on the card, a few thousand
 texts of the repo's own documentation through ``TorchEmbedder`` (bulk and
 coalesced), self-retrieval over the 1M-doc slab, exact and int8 search
-timed. Each phase prints one JSON line; the line before the last is the
-kernel table, the last is the result. Any failure exits non-zero. Without
+timed. Then it generates with bench.py's Gemma-2B-shaped decoder at full
+width (vocab 256128, d_model 2048, 8 heads, 18 layers, d_ff 16384,
+max_len 1024; random bf16 weights from a seed): ``generate_serving`` at
+batch 32 (decode step against its bound, a profile by class), continuous
+batching of 96 requests through ``TorchLMChat``, and the slot and wave
+paths held byte-equal at f32 on JaxLMChat's default model. Each phase
+prints one JSON line; the line before the last is the kernel table, the
+last is the result. Any failure exits non-zero. Without
 a CUDA device, or without the package beside it, it exits non-zero too.
 """
 
@@ -21,6 +27,7 @@ from __future__ import annotations
 
 import asyncio
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -68,6 +75,24 @@ ATTENTION_SEEDS = 3
 # bound is one bf16 ulp at |ctx| < 8 (unit-normal qkv keeps |ctx| < 8)
 ATTENTION_ATOL = 2.0**-5
 TEXT_FILES = ["docs/*.md", "SURVEY.md", "PAPER.md", "VERDICT.md", "BASELINE.md"]
+
+# generation: bench.py's Gemma-2B-shaped decoder ("config 5", bench.py:297-304)
+# at its full width and depth, random bf16 weights from seed 0
+GEMMA_2B = dict(
+    vocab_size=256_128, d_model=2048, n_heads=8, n_layers=18, d_ff=16384, max_len=1024,
+)
+GEN_BATCH, GEN_PROMPT, GEN_NEW = 32, 64, 64  # bench.py's decode rung
+CB_REQUESTS, CB_NEW, CB_SLOTS = 96, 32, 32  # continuous batching through TorchLMChat
+# JaxLMChat's default model (pathway_tpu/xpacks/llm/llms.py:218-221), run at
+# f32 for the slot-vs-wave equality check
+CHAT_DEFAULT = dict(
+    vocab_size=32768, d_model=256, n_heads=8, n_layers=4, d_ff=1024, max_len=512,
+)
+EQ_PROMPTS, EQ_BATCH = 48, 16
+# bf16 decode logits against a full causal forward over the same tokens:
+# the two round at other points (cached K/V vs recomputed, other matmul
+# shapes) on logits of |l| < 8
+DECODE_VS_FORWARD_ATOL = 0.125
 
 
 def emit(obj: dict) -> None:
@@ -412,6 +437,316 @@ def _cpu_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+# ------------------------------------------------------------ phase 3
+
+
+def decode_bound(cfg, batch: int) -> dict:
+    """Least time the card could take for one decode step of `batch`
+    rows, in ms. Bytes: every block weight and the tied `tok_embed` (the
+    logits product) read once in bf16, and the whole max_len K and V
+    cache of every layer read once, as the step attends over it under the
+    mask. Operations: 2 per weight per row for the projections and the
+    logits, and 4 * max_len * d_model per layer per row for q.k and p.v."""
+    d, n_layers, s = cfg.d_model, cfg.n_layers, cfg.max_len
+    item = cfg.dtype.itemsize
+    block = n_layers * (4 * d * d + 2 * d * cfg.d_ff + 2 * d)
+    embed = cfg.vocab_size * d
+    cache = 2 * n_layers * batch * s * d
+    nbytes = (block + embed + cache) * item
+    flops = batch * (2 * (n_layers * (4 * d * d + 2 * d * cfg.d_ff) + embed) + n_layers * 4 * s * d)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return dict(
+        bound_ms=max(t_bytes, t_ops) * 1e3, bound_by="bytes" if t_bytes >= t_ops else "operations",
+        bytes=nbytes, block_weight_bytes=block * item, tok_embed_bytes=embed * item,
+        kv_cache_bytes=cache * item, flops=flops, bytes_ms=t_bytes * 1e3, operations_ms=t_ops * 1e3,
+        worked_out=(
+            f"bytes: blocks {block * item / 1e9:.3f} GB + tok_embed {embed * item / 1e9:.3f} GB"
+            f" + K/V cache {cache * item / 1e9:.3f} GB (2 x {n_layers} layers x {batch} rows x"
+            f" {s} x {d}) = {nbytes / 1e9:.3f} GB over {HBM_BYTES_PER_S / 1e12} TB/s ="
+            f" {t_bytes * 1e3:.3f} ms; operations: {flops / 1e9:.1f} GFLOP over"
+            f" {BF16_FLOPS / 1e12:.0f} TFLOP/s = {t_ops * 1e3:.3f} ms"
+        ),
+    )
+
+
+# kernel classes of the decode profile, told apart by op and shape: only
+# attention runs batched products (aten::bmm) and ops on [b, h, 1, max_len]
+# scores; only the logits product has a vocab-wide operand
+_COPY_OPS = ("aten::copy_", "aten::index_put_", "aten::clone", "aten::contiguous", "aten::cat", "aten::stack")
+_GEMM_KERNELS = ("nvjet", "gemm", "cutlass", "xmma", "sm90_", "cublas")
+
+
+def profile_window(fn) -> dict:
+    """Host time of `fn` (ending in a synchronize) and the device time of
+    the kernels it ran (torch.profiler, all threads)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy = sum(
+        ev.self_device_time_total for ev in prof.key_averages()
+        if ev.self_device_time_total and str(ev.device_type).endswith("CUDA")
+    ) / 1e3
+    if not busy:
+        return dict(window_ms=wall_ms, device_busy_ms="not measured", device_idle_share="not measured")
+    return dict(window_ms=wall_ms, device_busy_ms=busy, device_idle_share=1 - busy / wall_ms)
+
+
+def profile_decode(step, n_steps: int, cfg, batch: int) -> dict:
+    """Device time of `n_steps` decode steps by class: the idle share from
+    a plain trace, the classes from a second trace with shapes (which
+    slows the host, not the kernels). Also the largest tensor any copy op
+    moved, against the elements of one cache layer's K."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def steps():
+        for _ in range(n_steps):
+            step()
+
+    out = profile_window(steps)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
+        steps()
+        torch.cuda.synchronize()
+    by_class = dict(matmul=0.0, attention=0.0, logits=0.0, elementwise_and_reductions=0.0, copies=0.0)
+    by_kernel: dict[str, float] = {}
+    largest_copy, copy_launches = 0, 0
+    for ev in prof.events():
+        if not ev.kernels:
+            continue
+        ms = sum(k.duration for k in ev.kernels) / 1e3
+        chain, p = [ev], ev.cpu_parent
+        while p is not None:
+            chain.append(p)
+            p = p.cpu_parent
+        names = [e.name for e in chain]
+        shapes = [s for e in chain for s in (e.input_shapes or []) if s]
+        if "aten::bmm" in names or any(len(s) == 4 and s[-1] == cfg.max_len for s in shapes):
+            cls = "attention"
+        elif "aten::mm" in names and any(cfg.vocab_size in s for s in shapes):
+            cls = "logits"
+        elif any(t in k.name for k in ev.kernels for t in _GEMM_KERNELS):
+            cls = "matmul"
+        elif ev.name in _COPY_OPS and "aten::_to_copy" not in names:  # a cast is elementwise
+            cls = "copies"
+            copy_launches += len(ev.kernels)
+            own = [s for s in (ev.input_shapes or []) if s]
+            largest_copy = max([largest_copy] + [math.prod(s) for s in own])
+        else:
+            cls = "elementwise_and_reductions"
+        by_class[cls] += ms
+        for k in ev.kernels:
+            by_kernel[k.name] = by_kernel.get(k.name, 0.0) + k.duration / 1e3
+    total = sum(by_class.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
+    launches = sum(len(ev.kernels) for ev in prof.events())
+    out.update(
+        steps=n_steps, classified_ms=total, kernel_launches_per_step=launches / n_steps,
+        ms_by_class={k: v / n_steps for k, v in by_class.items()},
+        share_by_class={k: (v / total if total else "not measured") for k, v in by_class.items()},
+        copy_launches_per_step=copy_launches / n_steps, largest_copy_elements=largest_copy,
+        cache_layer_elements=batch * cfg.n_heads * cfg.max_len * cfg.head_dim,
+        top_kernels_ms_per_step=[[name[:90], ms / n_steps] for name, ms in top],
+    )
+    return out
+
+
+def run_generate(device, lm_kw: dict, chat_kw: dict, texts: list[str], *, batch: int,
+                 prompt_len: int, new_tokens: int, cb_requests: int, cb_new: int,
+                 cb_slots: int, eq_prompts: int, eq_batch: int) -> dict:
+    """The port's generation path: (a) wave-aligned `generate_serving` at
+    full width, (b) continuous batching through `TorchLMChat`, (c) the
+    slot and wave paths byte-equal at f32 on JaxLMChat's default model.
+    Returns the rows it printed. Runs on the CPU too (at a small size)."""
+    import numpy as np
+    import torch
+
+    from pathway_tpu_torch import TorchLMChat
+    from pathway_tpu_torch.models import transformer as tfm
+    from pathway_tpu_torch.xpacks.llm.embedders import pad_left_rows
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    # -- (a) wave-aligned generation at full width
+    cfg = tfm.lm_config(dtype=torch.bfloat16, **lm_kw)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    params = tfm.init_params(torch.Generator(device=dev).manual_seed(0), cfg, dtype=torch.bfloat16)
+    prompt = torch.from_numpy(
+        # ids 2..999 as bench.py:339-342 draws them
+        np.random.default_rng(5).integers(2, min(1000, cfg.vocab_size), (batch, prompt_len))
+    ).to(dev)
+    cache = tfm.init_kv_cache(cfg, batch, dev)
+    n_params = tfm.count_params(params)
+
+    def generate():
+        return tfm.generate_serving(params, prompt, cache, new_tokens, cfg)[0]
+
+    with torch.no_grad():
+        toks = generate()  # warm-up: cuBLAS handles and workspaces
+        sync()
+        runs_s = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            toks = generate()
+            sync()
+            runs_s.append(time.perf_counter() - t0)
+        timer = cuda_ms if on_card else _cpu_ms
+        prefill_ms = timer(lambda: tfm.prefill(params, prompt, cache, cfg), 5)
+        last = toks[:, -2]  # decode at the last position the run wrote
+        pos = prompt_len + new_tokens - 2
+        step_ms = timer(lambda: tfm.decode_step(params, cache, last, pos, cfg), 20)
+        # the cache path against a full causal forward over the same tokens
+        k = min(batch, 4)
+        fwd = tfm.logits(params, toks[:k, :pos + 1], torch.ones_like(toks[:k, :pos + 1]), cfg)[:, -1]
+        dec, _ = tfm.decode_step(params, cache, last, pos, cfg)
+        vs_fwd = (dec[:k] - fwd).abs().max().item()
+        argmax_agree = float((dec[:k].argmax(-1) == fwd.argmax(-1)).float().mean())
+        # how close greedy picks are: the gap between each row's top two logits
+        top2 = dec.topk(2, dim=-1).values
+        top2_gap_median = float((top2[:, 0] - top2[:, 1]).median())
+        profile = None
+        if on_card:
+            profile = profile_decode(lambda: tfm.decode_step(params, cache, last, pos, cfg), 4, cfg, batch)
+            # the profiler slows the host: the idle share at the step's own time
+            profile["device_idle_share_at_step_ms"] = 1 - profile["device_busy_ms"] / 4 / step_ms
+    bound = decode_bound(cfg, batch)
+    gen_tokens = toks[:, prompt_len:]
+    wave = dict(
+        phase="generate_wave", config=lm_kw, params=n_params, dtype="bf16", batch=batch,
+        prompt=prompt_len, new_tokens=new_tokens, runs_s=runs_s,
+        tokens_per_s=batch * new_tokens / statistics.median(runs_s),
+        decode_tokens_per_s=batch / (step_ms * 1e-3), prefill_ms=prefill_ms, decode_step_ms=step_ms,
+        **bound, share_of_bound=bound["bound_ms"] / step_ms,
+        tokens_shape=list(toks.shape), prompt_kept=bool(torch.equal(toks[:, :prompt_len], prompt)),
+        tokens_in_vocab=bool(gen_tokens.min() >= 0 and gen_tokens.max() < cfg.vocab_size),
+        decode_vs_forward_max_abs=vs_fwd, decode_vs_forward_atol=DECODE_VS_FORWARD_ATOL,
+        decode_vs_forward_argmax_agree=argmax_agree, top2_logit_gap_median=top2_gap_median,
+        profile=profile,
+    )
+    if on_card:
+        wave["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    emit(wave)
+    if (list(toks.shape) != [batch, prompt_len + new_tokens] or not wave["prompt_kept"]
+            or not wave["tokens_in_vocab"] or not math.isfinite(vs_fwd) or vs_fwd > DECODE_VS_FORWARD_ATOL):
+        raise AssertionError(f"wave-aligned generation is wrong: {wave}")
+    if profile and profile["largest_copy_elements"] >= profile["cache_layer_elements"]:
+        raise AssertionError(f"a decode step copies a cache layer: {profile}")
+    del cache, toks, dec, fwd
+
+    # -- (b) continuous batching through the chat entry point
+    chat = TorchLMChat(cfg, params, max_new_tokens=cb_new, continuous_batching=True,
+                       decode_slots=cb_slots, max_batch=cb_slots, device=dev)
+    cb = chat._cb
+    prompts = texts[:cb_requests]
+
+    async def drive() -> list[tuple[str, float]]:
+        async def one(p: str):
+            t0 = time.perf_counter()
+            out = await chat.__wrapped__([{"role": "user", "content": p}])
+            return out, time.perf_counter() - t0
+
+        half = len(prompts) // 2
+        first = [asyncio.ensure_future(one(p)) for p in prompts[:half]]
+        steps0 = cb.stats["decode_steps"]
+        while cb.stats["decode_steps"] < steps0 + 3:  # the first half is mid-generation
+            await asyncio.sleep(0.002)
+        second = [asyncio.ensure_future(one(p)) for p in prompts[half:]]
+        return await asyncio.gather(*first, *second)
+
+    with torch.no_grad():
+        asyncio.run(chat.__wrapped__(prompts[0]))  # warm-up: prefill buckets, step
+        cb.drain()
+        pool0, stats0 = cb.pool.snapshot(), dict(cb.stats)
+        t0 = time.perf_counter()
+        results = asyncio.run(drive())
+        cb_s = time.perf_counter() - t0
+        cb.drain()
+        pool1, stats1 = cb.pool.snapshot(), dict(cb.stats)
+        idle = profile_window(lambda: (asyncio.run(drive()), cb.drain())) if on_card else None
+        wave_out = []
+        for i in range(0, len(prompts), cb_slots):
+            wave_out += chat._generate_batch(prompts[i:i + cb_slots])
+        # the two calls the scheduler makes, alone: a b=1 prefill into a
+        # slot and a step over every slot, each with its read-back
+        slot_cache = tfm.init_kv_cache(cfg, cb_slots, dev)
+        ids, mask = pad_left_rows([chat.tokenizer.tokenize(prompts[0])], cfg.max_len - cb_new, n_rows=1)
+        ids_t, mask_t = torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev)
+        vec = torch.zeros((3, cb_slots), dtype=torch.long, device=dev)
+        vec[1] = ids.shape[1]
+        host_timer = host_ms if on_card else _cpu_ms
+        slot_prefill_ms = host_timer(
+            lambda: int(tfm.prefill_into_slot(params, ids_t, mask_t, slot_cache, 0, cfg)[0][0]), 10
+        )
+        slot_step_ms = host_timer(
+            lambda: tfm.decode_step_slots(params, slot_cache, vec[0], vec[1], vec[2], cfg)[0].tolist(), 10
+        )
+        del slot_cache
+    got = [r for r, _ in results]
+    lat_ms = np.array([s for _, s in results]) * 1e3
+    counts = [len(r.split()) for r in got]
+    delta = {k: pool1[k] - pool0[k] for k in ("acquired_total", "refills", "joined_inflight")}
+    cbrow = dict(
+        phase="generate_continuous", requests=len(prompts), new_tokens=cb_new, slots=cb_slots,
+        seconds=cb_s, tokens_per_s=sum(counts) / cb_s,
+        latency_p50_ms=float(np.percentile(lat_ms, 50)), latency_p99_ms=float(np.percentile(lat_ms, 99)),
+        prefills=stats1["prefills"] - stats0["prefills"],
+        decode_steps=stats1["decode_steps"] - stats0["decode_steps"],
+        **delta, high_water=pool1["high_water"], profile=idle,
+        agree_with_wave=sum(a == b for a, b in zip(got, wave_out)) / len(got),
+        agreeing_prefix_tokens_mean=statistics.mean(
+            next((i for i, (x, y) in enumerate(zip(a.split(), b.split())) if x != y), cb_new)
+            for a, b in zip(got, wave_out)
+        ),
+        slot_prefill_ms=slot_prefill_ms, slot_step_ms=slot_step_ms,
+        host_s_in_prefills=stats1["prefill_seconds"] - stats0["prefill_seconds"],
+        host_s_in_steps=stats1["step_seconds"] - stats0["step_seconds"],
+    )
+    emit(cbrow)
+    if (len(got) != len(prompts) or any(c != cb_new for c in counts)
+            or delta["joined_inflight"] <= 0 or delta["refills"] <= 0):
+        raise AssertionError(f"continuous batching failed: {cbrow}")
+    chat._finalizer()
+    del chat, cb, params
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # -- (c) slot path == wave path, byte for byte, at f32
+    small = tfm.lm_config(dtype=torch.float32, **chat_kw)
+    eq = TorchLMChat(small, continuous_batching=True, decode_slots=eq_batch, max_batch=eq_batch, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(1))
+    eq_prompts_l = texts[cb_requests:cb_requests + eq_prompts]
+    with torch.no_grad():
+        futs = [eq._cb.submit(p) for p in eq_prompts_l]
+        slot_out = [f.result(timeout=600) for f in futs]
+        eq._cb.drain()
+        wave_eq = []
+        for i in range(0, len(eq_prompts_l), eq_batch):
+            wave_eq += eq._generate_batch(eq_prompts_l[i:i + eq_batch])
+    differ = [i for i, (a, b) in enumerate(zip(slot_out, wave_eq)) if a != b]
+    eqrow = dict(
+        phase="generate_f32_equality", config=chat_kw, prompts=len(eq_prompts_l),
+        new_tokens=eq.max_new_tokens, slots=eq_batch, wave_batch=eq_batch,
+        tf32=bool(torch.backends.cuda.matmul.allow_tf32), equal=len(eq_prompts_l) - len(differ),
+        differ=differ,
+    )
+    emit(eqrow)
+    eq._finalizer()
+    if differ or eqrow["tf32"]:
+        raise AssertionError(f"the slot path and the wave path differ at f32: {eqrow}")
+    return dict(wave=wave, continuous=cbrow, equality=eqrow)
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -458,6 +793,15 @@ def main() -> int:
     main_shape = rows[0]
 
     result = run_slice("cuda", FLAGSHIP, N_DOCS, DOC_BATCH, DOC_SEQ, ROOT)
+
+    # the generation path runs no hand-written kernel (its attention is
+    # plain PyTorch, as the JAX package leaves it to XLA): its launch
+    # counts are read across it all the same
+    _build.reset_launch_counts()
+    run_generate("cuda", GEMMA_2B, CHAT_DEFAULT, load_texts(ROOT, seed=1), batch=GEN_BATCH,
+                 prompt_len=GEN_PROMPT, new_tokens=GEN_NEW, cb_requests=CB_REQUESTS,
+                 cb_new=CB_NEW, cb_slots=CB_SLOTS, eq_prompts=EQ_PROMPTS, eq_batch=EQ_BATCH)
+    emit(dict(phase="generate_launches", kernel_launches=dict(_build.LAUNCHES)))
     emit(dict(phase="total", seconds=time.perf_counter() - t_start, card=card))
 
     print(json.dumps({"kernels": [dict(

@@ -18,9 +18,16 @@ dispatches through one process-wide :class:`DevicePlane`:
 * **Coalescing** — :class:`WaveCoalescer` gathers concurrently
   in-flight requests and flushes them as one padded dispatch, off the
   event loop.
+* **Persistent buffers** — ``lease``/``restore`` keep a pool of device
+  buffers per key (a KV cache per batch bucket) across dispatches; the
+  port writes them in place where the JAX package donates them.
+* **Decode slots** — :class:`SlotPool` is the bookkeeping of continuous
+  batching: one row of a leased multi-row KV cache per request.
 
 A failed dispatch raises to its caller: the port has no host path to
-degrade to.
+degrade to. The JAX package also exports the slot counters to its
+metrics registry; the port's are read off the pool until the host
+layers are ported.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ __all__ = [
     "BucketPolicy",
     "DeviceProgram",
     "DevicePlane",
+    "SlotPool",
     "WaveCoalescer",
     "get_device_plane",
     "resolve_device",
@@ -225,12 +233,78 @@ class WaveCoalescer:
                 f.set_result(values[i])
 
 
+class SlotPool:
+    """Fixed pool of decode slots over one persistent multi-row buffer —
+    the bookkeeping half of continuous batching (serving/
+    continuous_batching.py). Each slot is one row of a leased KV cache; a
+    request acquires a slot at admission, holds it across its whole
+    generation, and releases it at the step boundary where it finishes —
+    at which point the same decode batch re-fills the row with the next
+    queued request instead of waiting for the wave to drain.
+
+    Counters: ``refills`` (acquisitions of a row that served an earlier
+    request), ``joined_inflight`` (acquisitions while at least one other
+    slot was mid-generation), ``high_water`` (the most slots active at
+    once) and ``acquired_total``; ``snapshot()`` reads them together.
+    """
+
+    def __init__(self, name: str, n_slots: int):
+        if n_slots < 1:
+            raise ValueError(f"slot pool needs >= 1 slot, got {n_slots}")
+        self.name = name
+        self.n_slots = n_slots
+        self._lock = threading.Lock()
+        # LIFO keeps hot cache rows hot; slot 0 first for determinism
+        self._free = list(range(n_slots))[::-1]
+        self.acquired_total = 0
+        self.refills = 0
+        self.joined_inflight = 0
+        self.high_water = 0
+        self._ever_used: set[int] = set()
+
+    def acquire(self) -> int | None:
+        """Take a free slot (None when the pool is exhausted — the caller
+        leaves the request queued for the next step boundary)."""
+        with self._lock:
+            if not self._free:
+                return None
+            slot = self._free.pop()
+            self.acquired_total += 1
+            active = self.n_slots - len(self._free)
+            if active > 1:
+                self.joined_inflight += 1
+            if slot in self._ever_used:
+                self.refills += 1
+            self._ever_used.add(slot)
+            self.high_water = max(self.high_water, active)
+            return slot
+
+    def release(self, slot: int) -> None:
+        with self._lock:
+            if slot in self._free:
+                raise ValueError(f"slot {slot} released twice")
+            self._free.append(slot)
+
+    def snapshot(self) -> dict[str, int]:
+        with self._lock:
+            return {
+                "n_slots": self.n_slots,
+                "active": self.n_slots - len(self._free),
+                "acquired_total": self.acquired_total,
+                "refills": self.refills,
+                "joined_inflight": self.joined_inflight,
+                "high_water": self.high_water,
+            }
+
+
 class DevicePlane:
     """Process-wide device-dispatch plane (see module docstring)."""
 
     def __init__(self, bucket_policy: BucketPolicy | None = None):
         self.buckets = bucket_policy or BucketPolicy()
         self.programs: dict[str, DeviceProgram] = {}
+        self._leases: dict[Any, list] = {}  # key -> pooled buffers
+        self._slot_pools: dict[str, SlotPool] = {}
         self._name_seq = 0
         # reentrant: drop_program runs from weakref finalizers, which gc
         # may fire while this thread already holds the lock
@@ -295,17 +369,88 @@ class DevicePlane:
             pool=None if inline else self.dispatch_pool,
         )
 
+    def slot_pool(self, name: str, n_slots: int) -> SlotPool:
+        """Register-or-get the named decode slot pool (continuous
+        batching). Pools are plane-owned, like programs, so their counters
+        outlive the batcher that uses them; `drop_namespace` releases
+        them."""
+        with self._lock:
+            pool = self._slot_pools.get(name)
+            if pool is None:
+                pool = self._slot_pools[name] = SlotPool(name, n_slots)
+            elif pool.n_slots != n_slots:
+                raise ValueError(
+                    f"slot pool {name!r} already registered with "
+                    f"{pool.n_slots} slots (asked for {n_slots})"
+                )
+            return pool
+
+    def slot_pools(self) -> dict[str, dict[str, int]]:
+        """{pool_name: counters} across the plane."""
+        with self._lock:
+            pools = list(self._slot_pools.items())
+        return {name: pool.snapshot() for name, pool in pools}
+
     def unique_name(self, prefix: str) -> str:
         """Collision-proof program name for per-instance registrations."""
         with self._lock:
             self._name_seq += 1
             return f"{prefix}#{self._name_seq}"
 
+    # -------------------------------------------------- persistent buffers
+    #
+    # Each key holds a POOL of buffers: concurrent flush chunks of one
+    # stage may overlap, and each needs a buffer of its own.
+
+    def lease(self, key: Any, make: Callable[[], Any]) -> Any:
+        """Take a persistent buffer for `key`, creating one on first use
+        (or when every pooled buffer is leased). The caller writes it in
+        place and hands it back with :meth:`restore`."""
+        with self._lock:
+            pool = self._leases.get(key)
+            buf = pool.pop() if pool else None
+        if buf is None:
+            buf = make()
+        return buf
+
+    def restore(self, key: Any, buf: Any) -> None:
+        with self._lock:
+            self._leases.setdefault(key, []).append(buf)
+
+    def drop_lease(self, key: Any) -> None:
+        with self._lock:
+            self._leases.pop(key, None)
+
     def drop_program(self, name: str) -> None:
-        """Release a per-instance program (called from its owner's
-        finalizer, so the process-global plane does not pin it)."""
+        """Release a per-instance program and every lease pool keyed to it
+        (lease keys embed the program name). Called from the owner's
+        finalizer, so the process-global plane pins neither the program
+        nor its device buffers."""
         with self._lock:
             self.programs.pop(name, None)
+            for key in [k for k in self._leases if isinstance(k, tuple) and name in k]:
+                del self._leases[key]
+
+    def drop_namespace(self, prefix: str) -> None:
+        """Release every program, lease pool and slot pool in a
+        per-instance namespace: names equal to `prefix` or starting with
+        ``prefix + "/"`` (a continuous batcher registers
+        ``{prefix}/prefill``, ``{prefix}/step``, ``{prefix}/slots`` and a
+        cache lease keyed on `prefix`). The match respects the delimiter,
+        so ``cb#1`` never takes ``cb#10``."""
+
+        def hit(s: Any) -> bool:
+            return isinstance(s, str) and (s == prefix or s.startswith(prefix + "/"))
+
+        with self._lock:
+            for name in [p for p in self.programs if hit(p)]:
+                del self.programs[name]
+            for key in [
+                k for k in self._leases if isinstance(k, tuple) and any(hit(e) for e in k)
+            ]:
+                del self._leases[key]
+            for name in [p for p in self._slot_pools if hit(p)]:
+                del self._slot_pools[name]
 
     def pad_rows(self, mats: list, n_rows: int) -> tuple[list, int]:
         """Pad each 2-d numpy array in `mats` with zero rows up to the

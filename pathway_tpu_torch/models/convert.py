@@ -1,10 +1,14 @@
-"""Parameter bridge from the JAX package's encoder to the port's.
+"""Parameter bridge from the JAX package's transformer to the port's.
 
 ``pathway_tpu.models.transformer.init_params`` draws from ``jax.random``,
 which no ``torch.Generator`` reproduces, so parity runs carry the JAX
 parameter tree across as numpy arrays. Both packages lay weights out
 [d_in, d_out] (the product is ``x @ W``), so the bridge is a copy with a
-shape check, never a transpose.
+shape check, never a transpose. The encoder and the causal LM share one
+tree (the LM ties its logits to ``tok_embed`` and leaves ``head`` unused),
+so the bridge takes both. Random parameters at full width are made on the
+card by ``transformer.init_params(generator, cfg, dtype=torch.bfloat16)``,
+leaf by leaf.
 """
 
 from __future__ import annotations
