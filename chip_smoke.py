@@ -12,15 +12,20 @@ embed_dim 384; random weights from a seed): 1,048,576 docs encoded in
 16384-row batches into a ``VectorSlabIndex`` on the card, a few thousand
 texts of the repo's own documentation through ``TorchEmbedder`` (bulk and
 coalesced), self-retrieval over the 1M-doc slab, exact and int8 search
-timed. Then it generates with bench.py's Gemma-2B-shaped decoder at full
-width (vocab 256128, d_model 2048, 8 heads, 18 layers, d_ff 16384,
-max_len 1024; random bf16 weights from a seed): ``generate_serving`` at
-batch 32 (decode step against its bound, a profile by class), continuous
-batching of 96 requests through ``TorchLMChat``, and the slot and wave
-paths held byte-equal at f32 on JaxLMChat's default model. Each phase
-prints one JSON line; the line before the last is the kernel table, the
-last is the result. Any failure exits non-zero. Without
-a CUDA device, or without the package beside it, it exits non-zero too.
+timed. The approximate tier follows: bench.py's 1M x 64 ANN corpus built
+into an IVF-PQ index and searched at bench.py's operating point (against
+exact search and the numpy oracle, split by stage against its bound), then
+``IvfPqIndex`` over the 1M flagship-width rows (retrain, search, churn in
+waves, the reranked nprobe-1 wrapper). Then it generates with bench.py's
+Gemma-2B-shaped decoder at full width (vocab 256128, d_model 2048, 8
+heads, 18 layers, d_ff 16384, max_len 1024; random bf16 weights from a
+seed): ``generate_serving`` at batch 32 (decode step against its bound, a
+profile by class), continuous batching of 96 requests through
+``TorchLMChat``, and the slot and wave paths held byte-equal at f32 on
+JaxLMChat's default model. Each phase prints one JSON line; the line
+before the last is the kernel table, the last is the result. Any failure
+exits non-zero. Without a CUDA device, or without the package beside it,
+it exits non-zero too.
 """
 
 from __future__ import annotations
@@ -36,9 +41,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# NVIDIA H100 SXM data sheet: HBM3 rate and dense bf16 tensor-core rate
+# NVIDIA H100 SXM data sheet: HBM3 rate, dense bf16 tensor-core rate and
+# the f32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
 
 FLAGSHIP = dict(
     vocab_size=32768, d_model=384, n_heads=6, n_layers=6, d_ff=1536,
@@ -75,6 +82,15 @@ ATTENTION_SEEDS = 3
 # bound is one bf16 ulp at |ctx| < 8 (unit-normal qkv keeps |ctx| < 8)
 ATTENTION_ATOL = 2.0**-5
 TEXT_FILES = ["docs/*.md", "SURVEY.md", "PAPER.md", "VERDICT.md", "BASELINE.md"]
+
+# the approximate tier: bench.py's bench_ann corpus and operating point
+# (bench.py:1468-1488; d 64, 1M rows over 1000 gaussian topics, seed 7)
+ANN_ROWS, ANN_DIM, ANN_SEED = 1_000_000, 64, 7
+ANN_BATCH, ANN_K, ANN_NPROBE, ANN_CANDIDATES = 32, 10, 16, 1024
+ANN_FRONTIER = (4, 16, 64)  # bench.py's bench_ann_frontier
+ANN_MIN_RECALL = 0.93  # the JAX package's 1-CPU run recorded 0.941 on these bytes
+# churn of the incremental index: waves of removes and fresh adds, a search after each
+CHURN_WAVES, CHURN_WAVE = 16, 256
 
 # generation: bench.py's Gemma-2B-shaped decoder ("config 5", bench.py:297-304)
 # at its full width and depth, random bf16 weights from seed 0
@@ -289,8 +305,9 @@ def profile_encode(emb, ids, mask) -> dict:
 
 def run_slice(device, cfg_kw: dict, n_docs: int, batch: int, seq: int, root: Path) -> dict:
     """The port's main path: encode `n_docs` seeded token rows and a few
-    thousand texts, index them, retrieve. Returns the numbers it read.
-    Runs on the CPU too (at a small size), for a rehearsal."""
+    thousand texts, index them, retrieve. Returns the numbers it read, the
+    indexed (unit-norm) rows and the text queries with their keys. Runs on
+    the CPU too (at a small size), for a rehearsal."""
     import numpy as np
     import torch
 
@@ -425,7 +442,12 @@ def run_slice(device, cfg_kw: dict, n_docs: int, batch: int, seq: int, root: Pat
             f"the main path did not go through the attention kernel: {launches} launches "
             f"for {dispatches} encoder dispatches x {cfg.n_layers} layers"
         )
-    return dict(encode=enc, texts=texts_row, knn=knn, launches=launches)
+    # the ANN phases index the same rows and search with the same queries
+    return dict(
+        encode=enc, texts=texts_row, knn=knn, launches=launches,
+        vectors=index.vectors[: index.n_slots], query_vecs=qvecs,
+        query_keys=[n_docs + j for j in qsel],
+    )
 
 
 def _cpu_ms(fn, reps: int) -> float:
@@ -435,6 +457,332 @@ def _cpu_ms(fn, reps: int) -> float:
         fn()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+# ------------------------------------------------------------ phase 2b
+
+
+IVF_STAGES = ("probe", "lut", "adc", "topc", "rescore")
+
+
+def ivf_bound(B: int, P: int, cap: int, m: int, c: int, d: int, L: int, k: int) -> dict:
+    """Least time the card could take for one IVF-PQ search, in ms. Bytes:
+    the probed lists' codes (uint8), validity (bool) and slots (int32), the
+    candidates' f32 rescore rows, the centroids and codebooks, the queries
+    and the result, each once. Operations: the probe and LUT products, the
+    ADC adds and the rescore products, at the f32 rate outside the tensor
+    cores (the f64 tensor-core rate is the same)."""
+    cells = B * P * cap
+    parts = dict(
+        codes=cells * m, valid=cells, slots=4 * cells, rescore_rows=4 * B * c * d,
+        centroids=4 * L * d, codebooks=4 * 256 * d, queries=4 * B * d, result=8 * B * k,
+    )
+    nbytes = sum(parts.values())
+    flops = 2 * B * L * d + 2 * B * 256 * d + cells * m + 2 * B * c * d
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    return dict(
+        bound_ms=max(t_bytes, t_ops) * 1e3, bound_by="bytes" if t_bytes >= t_ops else "operations",
+        bytes=nbytes, flops=flops,
+        worked_out=(
+            " + ".join(f"{name} {v / 1e6:.3f} MB" for name, v in parts.items())
+            + f" = {nbytes / 1e6:.3f} MB over {HBM_BYTES_PER_S / 1e12} TB/s = {t_bytes * 1e3:.4f} ms;"
+            f" {flops / 1e9:.3f} GFLOP over {F32_FLOPS / 1e12:.0f} TFLOP/s = {t_ops * 1e3:.4f} ms"
+        ),
+    )
+
+
+def profile_stages(fn, n_calls: int) -> dict:
+    """Device time of `n_calls` IVF-PQ searches split by stage (the
+    `ivf_pq.<stage>` profiler ranges of the search; "outside" is what runs
+    outside them: padding, copies in and out), kernel launches per call,
+    and the idle share of the profiled window."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    stage_ms = dict.fromkeys((*IVF_STAGES, "outside"), 0.0)
+    launches = 0
+    by_kernel: dict[str, float] = {}
+    for ev in prof.events():
+        if not ev.kernels:
+            continue
+        ms = sum(k.duration for k in ev.kernels) / 1e3
+        launches += len(ev.kernels)
+        stage, p = "outside", ev
+        while p is not None:
+            if p.name.startswith("ivf_pq."):
+                stage = p.name.split(".", 1)[1]
+                break
+            p = p.cpu_parent
+        stage_ms[stage] += ms
+        for k in ev.kernels:
+            by_kernel[k.name] = by_kernel.get(k.name, 0.0) + k.duration / 1e3
+    busy = sum(stage_ms.values())
+    if not busy:
+        return dict(window_ms=wall_ms, kernel_ms_per_call="not measured")
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    return dict(
+        calls=n_calls, window_ms=wall_ms, kernel_ms_per_call=busy / n_calls,
+        launches_per_call=launches / n_calls, device_idle_share=1 - busy / wall_ms,
+        stage_ms_per_call={k: v / n_calls for k, v in stage_ms.items()},
+        stage_share={k: v / busy for k, v in stage_ms.items()},
+        top_kernels_ms_per_call=[[name[:80], ms / n_calls] for name, ms in top],
+    )
+
+
+def bench_ann_corpus(n: int, d: int = ANN_DIM, batch: int = ANN_BATCH):
+    """bench.py's `bench_ann` corpus and queries, bit for bit
+    (bench.py:1473-1486): gaussian topics, noise 0.15, unit rows; queries
+    are rows plus noise 0.05."""
+    import numpy as np
+
+    rng = np.random.default_rng(ANN_SEED)
+    kc = max(1000, n // 1000)
+    centers = rng.standard_normal((kc, d), dtype=np.float32)
+    docs = centers[rng.integers(0, kc, n)]
+    docs += 0.15 * rng.standard_normal((n, d), dtype=np.float32)
+    docs /= np.linalg.norm(docs, axis=1, keepdims=True)
+    q = docs[rng.choice(n, batch)] + 0.05 * rng.standard_normal((batch, d), dtype=np.float32)
+    return docs, q
+
+
+def _recall(got, want, k: int) -> float:
+    return float(sum(len(set(g[:k]) & set(w[:k])) for g, w in zip(got, want)) / (k * len(want)))
+
+
+def run_ann(device, *, ann_rows: int, vectors, query_vecs, query_keys, slab_p50_ms: float,
+            churn_waves: int, churn_wave: int, reps: int) -> dict:
+    """The port's approximate tier. (a) `ann_build` and `ann_search`:
+    bench.py's 1M x 64 ANN corpus built by `build_ivf_pq(seed=0)` and
+    searched at its operating point (B 32, k 10, nprobe 16, candidates
+    1024), against exact `knn_search` and the numpy oracle, then the
+    nprobe 4/16/64 frontier. (b) `ann_index`: `IvfPqIndex` over `vectors`
+    (run_slice's rows at the flagship width) with one explicit retrain,
+    searched with run_slice's text queries, churned in waves, and wrapped
+    in `RerankedSlabIndex` at nprobe 1. Returns the rows it printed. Runs
+    on the CPU too (at a small size), for a rehearsal."""
+    import numpy as np
+    import torch
+
+    from pathway_tpu_torch.engine.device_plane import get_device_plane
+    from pathway_tpu_torch.indexing import IvfPqIndex, RerankedSlabIndex
+    from pathway_tpu_torch.ops import ivf
+    from pathway_tpu_torch.ops.topk import knn_search
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    timer = host_ms if on_card else _cpu_ms
+    k = ANN_K
+
+    # -- (a) bench.py's corpus and operating point
+    docs, q = bench_ann_corpus(ann_rows)
+    t0 = time.perf_counter()
+    host = ivf.build_ivf_pq(docs, seed=0, device=dev)
+    build_s = time.perf_counter() - t0
+    index = ivf.arrays_from_numpy(host, dev)
+    L, cap, m = index.codes.shape
+    build = dict(
+        phase="ann_build", rows=ann_rows, dim=ANN_DIM, build_s=build_s, lists=L, cap=cap,
+        subvectors=m, cube_bytes=index.codes.numel() + index.valid.numel() + 4 * index.slots.numel(),
+        full_bytes=4 * index.full.numel(),
+    )
+    emit(build)
+
+    qt = torch.from_numpy(q).to(dev)
+
+    def search(nprobe: int = ANN_NPROBE):
+        return ivf.ivf_pq_search(qt, index, k, nprobe=nprobe, candidates=ANN_CANDIDATES)
+
+    transient = {}
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    slots, dists = search()
+    got = slots.cpu().numpy()
+    if on_card:  # what one search allocates on top of the resident index
+        transient["search_transient_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    exact = knn_search(qt, index.full, k, "cos", normalized=True)
+    ei = exact.indices.cpu().numpy()
+    # the f32 order: q.d in f32 (TF32 off), the order the rescore restores
+    f32 = torch.topk(ivf._f32_product(torch.nn.functional.normalize(qt), index.full.t()), k).indices.cpu().numpy()
+    oracle, _ = ivf.ivf_pq_search_host(q, host._replace(full=docs), k, nprobe=ANN_NPROBE,
+                                        candidates=ANN_CANDIDATES)
+    ann_p50 = timer(search, reps)
+    exact_p50 = timer(lambda: knn_search(qt, index.full, k, "cos", normalized=True), reps)
+    srch = dict(
+        phase="ann_search", rows=ann_rows, batch=ANN_BATCH, k=k, nprobe=ANN_NPROBE,
+        candidates=ANN_CANDIDATES, p50_ms=ann_p50, exact_knn_search_p50_ms=exact_p50,
+        speedup=exact_p50 / ann_p50, recall_at_10=_recall(got, ei, k),
+        recall_at_10_vs_f32=_recall(got, f32, k),
+        oracle_sets_equal=int(sum(set(a) == set(b) for a, b in zip(got, oracle))),
+        finite=bool(torch.isfinite(dists).all()), shape=list(slots.shape),
+        **ivf_bound(ANN_BATCH, ANN_NPROBE, cap, m, ANN_CANDIDATES, ANN_DIM, L, k), **transient,
+    )
+    if on_card:
+        srch["event_ms"] = cuda_ms(search, reps)
+        srch["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        srch["profile"] = profile_stages(search, 10)
+        srch["share_of_bound"] = srch["bound_ms"] / srch["profile"]["kernel_ms_per_call"]
+        # the order-deciding products never take TF32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            s32, d32 = search()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        srch["tf32_on_identical"] = bool(torch.equal(s32, slots) and torch.equal(d32, dists))
+    frontier = []
+    for nprobe in ANN_FRONTIER:
+        s_np = search(nprobe)[0].cpu().numpy()
+        frontier.append(dict(nprobe=nprobe, recall_at_10=_recall(s_np, ei, k),
+                             p50_ms=timer(lambda: search(nprobe), reps)))
+    srch["frontier"] = frontier
+    emit(srch)
+    if (srch["shape"] != [ANN_BATCH, k] or not srch["finite"] or srch["recall_at_10"] < ANN_MIN_RECALL
+            or srch["oracle_sets_equal"] < ANN_BATCH - 1 or not srch.get("tf32_on_identical", True)):
+        raise AssertionError(f"the IVF-PQ search is wrong: {srch}")
+    del index, host, docs, qt, exact
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # -- (b) the incremental index at the flagship width
+    n, d = vectors.shape
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    # train_min past the row count: the adds never train, one explicit
+    # retrain does, and churn later never schedules another
+    ann = IvfPqIndex(dimensions=d, reserved_space=n, train_min=n + 1, background_retrain=False, device=dev)
+    t0 = time.perf_counter()
+    for i in range(n):
+        ann.add(i, vectors[i])
+    add_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ann.retrain_now()
+    retrain_s = time.perf_counter() - t0
+    gen = ann._gen
+    items = [(v, k, None) for v in query_vecs]
+    qmat = np.stack(query_vecs).astype(np.float32)
+
+    def exact_keys(qs):
+        out = []
+        for slots_r, d_r in ann._topk_host(qs, k):
+            order = np.lexsort((slots_r, d_r))[:k]
+            out.append([ann.key_of[int(s)] for s in slots_r[order]])
+        return out
+
+    res = ann.search_batch(items)  # builds the device mirrors
+    transient = {}
+    if on_card:
+        transient["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ann.search_batch(items)
+        transient["search_transient_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    idx_p50 = timer(lambda: ann.search_batch(items), reps)
+    keys_got = [[key for key, _ in r] for r in res]
+    nprobe = ivf.auto_nprobe(gen.n_lists)
+    cand = ann._candidates(k, gen)
+    idx_row = dict(
+        phase="ann_index", rows=n, dim=d, add_s=add_s, retrain_s=retrain_s, lists=gen.n_lists,
+        cap=gen.cap, subvectors=gen.cube.shape[2], nprobe=nprobe, candidates=cand,
+        list_fill_max=int(gen.fill.max()), list_fill_mean=float(gen.fill.mean()),
+        queries=len(items), search_batch_p50_ms=idx_p50, exact_slab_search_batch_p50_ms=slab_p50_ms,
+        self_top1=int(sum(r[0] == key for r, key in zip(keys_got, query_keys))),
+        recall_at_10=_recall(keys_got, exact_keys(qmat), k),
+        **ivf_bound(len(items), nprobe, gen.cap, gen.cube.shape[2], cand, d, gen.n_lists, k), **transient,
+    )
+    if on_card:
+        idx_row["profile"] = profile_stages(lambda: ann.search_batch(items), 10)
+        idx_row["share_of_bound"] = idx_row["bound_ms"] / idx_row["profile"]["kernel_ms_per_call"]
+    emit(idx_row)
+    if idx_row["self_top1"] != len(items):
+        raise AssertionError(f"the IVF-PQ index missed a self-query: {idx_row}")
+
+    # -- churn in waves: each removes and adds `churn_wave` rows, then searches
+    rng = np.random.default_rng(3)
+    protected = set(query_keys)
+    before = dict(ann.counters)
+    cap0 = gen.cap
+    added: list[tuple[int, np.ndarray]] = []
+    leaks, next_key = 0, n
+    for _ in range(churn_waves):
+        live = np.fromiter(ann.slot_of, np.int64, len(ann.slot_of))
+        gone = [int(x) for x in rng.choice(live, churn_wave, replace=False) if int(x) not in protected]
+        for key in gone:
+            ann.remove(key)
+        base = vectors[rng.integers(0, n, len(gone))]  # as many in as out
+        fresh = base + 0.05 * rng.standard_normal(base.shape, dtype=np.float32)
+        fresh /= np.linalg.norm(fresh, axis=1, keepdims=True)
+        for vec in fresh:
+            ann.add(next_key, vec)
+            added.append((next_key, vec))
+            protected.add(next_key)  # each added row stays, to find itself
+            next_key += 1
+        live_keys = set(ann.slot_of)
+        wave_items = items + [(v, k, None) for _key, v in added[-len(items):]]
+        leaks += sum(not {key for key, _ in r} <= live_keys for r in ann.search_batch(wave_items))
+    found = top1 = 0
+    for j in range(0, len(added), 32):
+        chunk = added[j:j + 32]
+        for (key, _v), r in zip(chunk, ann.search_batch([(v, k, None) for _key, v in chunk])):
+            found += any(kk == key for kk, _ in r)
+            top1 += bool(r) and r[0][0] == key
+    delta = {name: ann.counters[name] - before[name]
+             for name in ("cell_updates", "row_updates", "cube_rebuilds", "row_rebuilds", "spills", "retrains")}
+    churn = dict(
+        phase="ann_churn", waves=churn_waves, removed_and_added_per_wave=churn_wave, added=len(added),
+        results_outside_live=leaks, added_found=found, added_top1=top1, cap_before=cap0,
+        cap_after=ann._gen.cap, **delta,
+    )
+    emit(churn)
+    if (leaks or found != len(added)
+            or (ann._gen.cap == cap0 and (delta["cube_rebuilds"] or delta["row_rebuilds"]))):
+        raise AssertionError(f"the index went wrong under churn: {churn}")
+
+    # -- the two-stage wrapper over a crippled first stage (nprobe 1)
+    want = exact_keys(qmat)
+    plain = [[key for key, _ in r] for r in ann.search_batch(items, nprobe=1)]
+    ann.nprobe = 1
+    wrapped = RerankedSlabIndex(ann, expand=4)
+    reranked = [[key for key, _ in r] for r in wrapped.search_batch(items)]
+    rr = dict(
+        phase="ann_rerank", base_nprobe=1, expand=4, plain_recall_at_10=_recall(plain, want, k),
+        reranked_recall_at_10=_recall(reranked, want, k), **wrapped.counters,
+        p50_ms=timer(lambda: wrapped.search_batch(items), max(3, reps // 3)),
+    )
+    # the reranker's own program at round 0's shape: the first stage's
+    # k * expand candidates of each query, padded to the plane's buckets
+    first = ann.search_batch([(v, k * 4, None) for v in query_vecs])
+    C = max(len(c) for c in first)
+    rc = np.zeros((len(items), C, d), np.float32)
+    rv = np.zeros((len(items), C), bool)
+    for b, cands in enumerate(first):
+        for c, (key, _dist) in enumerate(cands):
+            rc[b, c], rv[b, c] = ann.vectors[ann.slot_of[key]], True
+    plane = get_device_plane()
+    Bb, Cb = plane.buckets.rows_bucket(len(items)), plane.buckets.cap_bucket(C)
+    nbytes = 4 * Bb * d + 4 * Bb * Cb * d + Bb * Cb + 4 * Bb * Cb  # q, rows, valid in; scores out
+    flops = 6 * Bb * Cb * d  # the candidate norms and the products
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    rr.update(
+        scores_shape=[Bb, Cb, d], scores_p50_ms=timer(lambda: wrapped.reranker.scores(qmat, rc, rv), reps),
+        scores_bound_ms=max(t_bytes, t_ops) * 1e3, scores_bound_by="bytes" if t_bytes >= t_ops else "operations",
+    )
+    if on_card:
+        prof = profile_stages(lambda: wrapped.reranker.scores(qmat, rc, rv), 10)
+        rr.update(scores_kernel_ms=prof["kernel_ms_per_call"], scores_launches=prof["launches_per_call"])
+    emit(rr)
+    if rr["reranked_recall_at_10"] < rr["plain_recall_at_10"] or rr["rerank_expansions"] <= 0:
+        raise AssertionError(f"reranking did not recover the probe misses: {rr}")
+    del ann, wrapped
+    if on_card:
+        torch.cuda.empty_cache()
+    return dict(build=build, search=srch, index=idx_row, churn=churn, rerank=rr)
 
 
 # ------------------------------------------------------------ phase 3
@@ -793,6 +1141,15 @@ def main() -> int:
     main_shape = rows[0]
 
     result = run_slice("cuda", FLAGSHIP, N_DOCS, DOC_BATCH, DOC_SEQ, ROOT)
+
+    # the approximate tier runs no hand-written kernel (the IVF-PQ search
+    # and the reranker are plain PyTorch, as the JAX package leaves them to
+    # XLA): its launch counts are read across it all the same
+    _build.reset_launch_counts()
+    run_ann("cuda", ann_rows=ANN_ROWS, vectors=result.pop("vectors"), query_vecs=result["query_vecs"],
+            query_keys=result["query_keys"], slab_p50_ms=result["knn"]["search_batch_p50_ms"],
+            churn_waves=CHURN_WAVES, churn_wave=CHURN_WAVE, reps=30)
+    emit(dict(phase="ann_launches", kernel_launches=dict(_build.LAUNCHES)))
 
     # the generation path runs no hand-written kernel (its attention is
     # plain PyTorch, as the JAX package leaves it to XLA): its launch

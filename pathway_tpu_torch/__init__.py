@@ -4,8 +4,10 @@ The JAX package ``pathway_tpu`` is the reference this package is held
 against; this package imports neither it nor JAX. Its slices so far are
 the live-RAG embed-and-retrieve path (the hash tokenizer, the flagship
 encoder with its fused attention kernel ``csrc/attention.cu``, the KNN
-slab index and the embedder that feeds it) and answer generation (the
-causal LM with its KV cache, continuous batching and the chat model).
+slab index and the embedder that feeds it), answer generation (the
+causal LM with its KV cache, continuous batching and the chat model) and
+the approximate tier (``pathway_tpu_torch.indexing``: the incremental
+IVF-PQ index and the reranked two-stage wrapper).
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``.
 """

@@ -1,4 +1,5 @@
-"""The port's numeric plane: attention, distances and top-k."""
+"""The port's numeric plane: attention, distances, top-k, the IVF-PQ
+search (`ivf`) and the batched reranker (`rerank`)."""
 
 from pathway_tpu_torch.ops.attention import fused_qkv_attention, reference_attention
 from pathway_tpu_torch.ops.distances import (
@@ -13,6 +14,7 @@ from pathway_tpu_torch.ops.topk import (
     knn_search,
     knn_search_masked,
     knn_search_quantized,
+    make_knn_searcher,
     quantize_docs,
     update_quantized_docs,
 )
@@ -27,6 +29,7 @@ __all__ = [
     "knn_search_masked",
     "knn_search_quantized",
     "l2_distances",
+    "make_knn_searcher",
     "normalize",
     "quantize_docs",
     "reference_attention",

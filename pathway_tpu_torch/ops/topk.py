@@ -6,6 +6,7 @@ JAX package asks XLA for ``approx_max_k``, the port takes the exact
 ``torch.topk``: recall can only rise, and JAX on the CPU is exact too.
 ``torch.topk`` breaks ties in another order than ``lax.top_k``; callers
 that need a stable order re-sort by (score, key), as the slab index does.
+``make_knn_searcher`` closes over these, or over the IVF-PQ tier.
 """
 
 from __future__ import annotations
@@ -141,3 +142,84 @@ def knn_search_quantized(
     s, pos = torch.topk(exact, k, dim=1)
     idx = torch.gather(cand_idx, 1, pos)
     return TopKResult(indices=idx.to(torch.int32), distances=1.0 - s)
+
+
+def make_knn_searcher(
+    k: int,
+    metric: str = "cos",
+    mesh=None,
+    axis: str = "data",
+    *,
+    ann: bool | None = None,
+    nprobe: int | None = None,
+):
+    """Pre-configured searcher closure ``search(queries, docs) -> TopKResult``.
+
+    Exact by default (`knn_search`). `ann=True` routes through the IVF-PQ
+    index (`ops/ivf.py`): the first search against a given doc matrix
+    trains an index and keeps it resident on the matrix's device, later
+    searches probe `nprobe` lists instead of scanning every row. The
+    `PATHWAY_ANN` env var overrides either way: `0` forces the exact scan,
+    `1` opts unlabeled call sites in; an explicit `ann=False` stays exact.
+    A `mesh` (the list-sharded search) waits for the multi-device slice.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "the mesh-sharded searcher is not ported yet; it comes with the "
+            "multi-device slice (ROADMAP A9)"
+        )
+    from pathway_tpu_torch.indexing import ann_enabled
+
+    use_ann = (
+        ann is not False
+        and ann_enabled(default=bool(ann))
+        and metric in ("cos", "cosine", "dot", "l2sq")
+    )
+    if not use_ann:
+        def search(queries: torch.Tensor, docs: torch.Tensor) -> TopKResult:
+            return knn_search(queries, docs, k, metric)
+
+        return search
+
+    import os
+    import weakref
+    from collections import OrderedDict
+
+    from pathway_tpu_torch.ops import ivf as _ivf
+
+    # Bounded LRU of resident indexes, keyed by the matrix's id() but only
+    # served through a LIVE weakref check: a freed tensor's address can be
+    # recycled by a new matrix of the same shape, so the id alone never
+    # validates a hit. Several entries keep alternating doc matrices warm
+    # without a retrain per call; the bound keeps a long-lived searcher
+    # from growing one index per matrix it ever saw.
+    cache: "OrderedDict[int, tuple]" = OrderedDict()
+    cache_cap = max(1, int(os.environ.get("PATHWAY_KNN_CACHE", "4") or 4))
+
+    def search_ann(queries: torch.Tensor, docs: torch.Tensor) -> TopKResult:
+        key = id(docs)
+        index = None
+        ent = cache.get(key)
+        if ent is not None:
+            ref, shape, cached = ent
+            if ref() is docs and shape == tuple(docs.shape):
+                index = cached
+                cache.move_to_end(key)
+            else:  # recycled id: the entry is stale, drop it
+                del cache[key]
+        if index is None:
+            # prune entries whose matrix has been freed, THEN evict LRU
+            for stale in [kk for kk, (r, _s, _i) in cache.items() if r() is None]:
+                del cache[stale]
+            host = docs.detach().cpu().numpy()
+            index = _ivf.arrays_from_numpy(
+                _ivf.build_ivf_pq(host, metric=metric, device=docs.device), docs.device
+            )
+            cache[key] = (weakref.ref(docs), tuple(docs.shape), index)
+            while len(cache) > cache_cap:
+                cache.popitem(last=False)
+        slots, dists = _ivf.ivf_pq_search(queries, index, k, nprobe=nprobe, metric=metric)
+        return TopKResult(indices=slots, distances=dists)
+
+    search_ann._cache = cache  # introspection seam (tests, debugging)
+    return search_ann

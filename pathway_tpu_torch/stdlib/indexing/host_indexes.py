@@ -55,7 +55,9 @@ class VectorSlabIndex(HostIndex):
 
     `device` is where the mirror lives: True (the default) means the
     CUDA card, a device name or ``torch.device`` names one, and False
-    keeps no mirror and scans the host slab.
+    keeps no mirror and scans the host slab. `approx` is accepted as
+    False only: the JAX package's ``approx_max_k`` has no torch
+    counterpart, and the exact ``torch.topk`` serves both.
     """
 
     def __init__(
@@ -63,8 +65,14 @@ class VectorSlabIndex(HostIndex):
         dimensions: int | None = None,
         reserved_space: int = 1024,
         metric: str = "cos",
+        approx: bool = False,
         device: bool | str | torch.device = True,
     ):
+        if approx:
+            raise NotImplementedError(
+                "approx=True (approx_max_k) has no torch counterpart; the exact "
+                "top-k serves this index"
+            )
         self.dim = dimensions
         self.metric = "cos" if metric == "cosine" else metric
         self.device = (
@@ -82,6 +90,15 @@ class VectorSlabIndex(HostIndex):
         self._device_valid: torch.Tensor | None = None  # [padded] bool
         # slots changed since the last mirror sync (None: rebuild it all)
         self._dirty_slots: set[int] | None = None
+
+    def __getstate__(self):
+        # the device mirror is rebuilt from the host slab on the first
+        # search after unpickling
+        st = dict(self.__dict__)
+        st["_device_docs"] = None
+        st["_device_valid"] = None
+        st["_dirty_slots"] = None
+        return st
 
     # ------------------------------------------------------------- mutation
 

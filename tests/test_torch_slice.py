@@ -254,7 +254,7 @@ def test_importing_the_port_loads_no_jax():
     code = (
         "import sys, pathway_tpu_torch, pathway_tpu_torch.ops, pathway_tpu_torch.models, "
         "pathway_tpu_torch.models.convert, pathway_tpu_torch.xpacks.llm, "
-        "pathway_tpu_torch.stdlib.indexing\n"
+        "pathway_tpu_torch.stdlib.indexing, pathway_tpu_torch.indexing\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'pathway_tpu'))\n"
         "assert not bad, bad\n"
     )
