@@ -55,11 +55,14 @@ N_DOCS = 1 << 20  # the 1M-doc scale of the KNN target
 DOC_BATCH, DOC_SEQ = 16384, 64  # bench.py's encoder batch
 N_QUERIES, TOP_K = 16, 10
 # (label, b, s, d, n_heads), timed: the flagship encoder's embed batch, the
-# default TorchEmbedder's widest bucket, and the flagship width at the short
-# buckets (s 16 and 32) that the texts phase's chunks fall into
+# default TorchEmbedder's widest bucket and the bucket its RAG phases fill
+# (s 32: documents and questions of at most 32 tokens), and the flagship
+# width at the short buckets (s 16 and 32) that the texts phase's chunks
+# fall into
 ATTENTION_SHAPES = [
     ("flagship", 16384, 64, 384, 6),
     ("embedder_default", 4096, 128, 256, 8),
+    ("embedder_default_s32", 4096, 32, 256, 8),
     ("flagship_s32", 16384, 32, 384, 6),
     ("flagship_s16", 16384, 16, 384, 6),
 ]
@@ -83,12 +86,35 @@ ATTENTION_SEEDS = 3
 ATTENTION_ATOL = 2.0**-5
 TEXT_FILES = ["docs/*.md", "SURVEY.md", "PAPER.md", "VERDICT.md", "BASELINE.md"]
 
+# the host engine: bench.py's wordcount rung (WORDCOUNT_ROWS, bench.py:50;
+# the generator at bench.py:925-940)
+WORDCOUNT_ROWS, WORDCOUNT_SEED = 5_000_000, 7
+# the live-RAG pipeline through pw.run: bench.py's config-4 on-chip RAG rung
+# at its own sizes (bench.py:724-779), the default TorchEmbedder and
+# TorchLMChat (JaxEmbedder's and JaxLMChat's defaults)
+EMBEDDER_DEFAULT = dict(
+    vocab_size=32768, d_model=256, n_heads=8, n_layers=4, d_ff=1024, max_len=128, embed_dim=256,
+)
+RAG_DOCS, RAG_QUESTIONS, RAG_WAVES, RAG_SEED, RAG_TOPK, RAG_NEW = 512, 128, 8, 4, 4, 32
+# a live document store at a deployment's size: documents drawn from the
+# texts phase's chunks, streamed in waves, then questions retrieved
+INGEST_DOCS, INGEST_WAVES, INGEST_QUESTIONS, INGEST_K = 131_072, 16, 64, 4
+# engine vs direct build: the engine embeds each chunk in another wave
+# (another row mix and sequence bucket) than the direct build, so the
+# same chunk's bf16 embedding may differ by a few bf16 ulps, and its
+# score against the bf16 slab mirror by up to 2^-6 (unit vectors)
+INGEST_SCORE_ATOL = 2.0**-6
+
 # the approximate tier: bench.py's bench_ann corpus and operating point
 # (bench.py:1468-1488; d 64, 1M rows over 1000 gaussian topics, seed 7)
 ANN_ROWS, ANN_DIM, ANN_SEED = 1_000_000, 64, 7
 ANN_BATCH, ANN_K, ANN_NPROBE, ANN_CANDIDATES = 32, 10, 16, 1024
 ANN_FRONTIER = (4, 16, 64)  # bench.py's bench_ann_frontier
 ANN_MIN_RECALL = 0.93  # the JAX package's 1-CPU run recorded 0.941 on these bytes
+# the incremental index runs over half the slab's random-token rows plus
+# all its text rows: its host retrain over all 1,050,705 rows took 193-312 s,
+# the larger part of the script's time
+ANN_INDEX_DOCS = N_DOCS // 2
 # churn of the incremental index: waves of removes and fresh adds, a search after each
 CHURN_WAVES, CHURN_WAVE = 16, 256
 
@@ -385,7 +411,7 @@ def run_slice(device, cfg_kw: dict, n_docs: int, batch: int, seq: int, root: Pat
     flushes0 = emb._batcher.flushes
 
     async def embed_all():
-        return await asyncio.gather(*(emb.embed(texts[j]) for j in sample))
+        return await asyncio.gather(*(emb.__wrapped__(texts[j]) for j in sample))
 
     t0 = time.perf_counter()
     coalesced = asyncio.run(embed_all())
@@ -457,6 +483,407 @@ def _cpu_ms(fn, reps: int) -> float:
         fn()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+# ------------------------------------------------------------ phase 2a
+# the host dataflow engine and the live-RAG pipeline on it
+
+
+def wordcount_input(path: Path, n: int) -> dict[str, int]:
+    """bench.py's wordcount input (`_gen_wordcount_input`, seed 7): `n`
+    jsonlines rows of one of 10,000 random 10-letter words. Returns the
+    count of each word."""
+    import numpy as np
+
+    rng = np.random.default_rng(WORDCOUNT_SEED)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    dictionary = ["".join(rng.choice(letters, 10)) for _ in range(10_000)]
+    idx = rng.integers(0, len(dictionary), n)
+    with open(path, "w") as f:
+        for s in range(0, n, 200_000):
+            f.write("\n".join('{"word": "%s"}' % dictionary[i] for i in idx[s:s + 200_000]) + "\n")
+    counts = np.bincount(idx, minlength=len(dictionary))
+    return {dictionary[i]: int(c) for i, c in enumerate(counts) if c}
+
+
+def run_engine_wordcount(n_rows: int, workdir: Path) -> dict:
+    """bench.py's wordcount rung (`bench.py:363`) on `import
+    pathway_tpu_torch as pw`: jsonlines -> groupby -> count -> csv, held to
+    a count over the input. The host libraries build (or load) first, so
+    the rate is the engine's."""
+    import os
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.engine import native
+    from pathway_tpu_torch.internals.parse_graph import G
+
+    planes = native.planes()
+    src, out = workdir / "words.jsonl", workdir / "counts.csv"
+    want = wordcount_input(src, n_rows)
+
+    class S(pw.Schema):
+        word: str
+
+    G.clear()
+    t0 = time.perf_counter()
+    t = pw.io.fs.read(str(src), format="json", schema=S, mode="static")
+    res = t.groupby(t.word).reduce(t.word, count=pw.reducers.count())
+    pw.io.csv.write(res, str(out))
+    pw.run()
+    seconds = time.perf_counter() - t0
+    G.clear()
+    got: dict[str, int] = {}
+    lines = out.read_text().splitlines()
+    for ln in lines[1:]:
+        word, count, _time, diff = ln.split(",")
+        got[word] = got.get(word, 0) + int(count) * int(diff)
+    row = dict(
+        phase="engine_wordcount", rows=n_rows, seconds=seconds, rows_per_s=n_rows / seconds,
+        words=len(got), header=lines[0], native_zset=planes["zset"],
+        native_dataplane=planes["dataplane"], gpp_build_s=planes["build_seconds"],
+        cpu_count=os.cpu_count(), equals_counter=got == want,
+    )
+    emit(row)
+    if got != want:
+        raise AssertionError(f"wordcount output differs from a count over the input: {row}")
+    return row
+
+
+def rag_corpus(n_docs: int, n_q: int, waves: int, seed: int):
+    """bench.py's config-4 rung's documents and questions (`bench.py:724-
+    735`): 24- and 6-word strings over six words, the questions streamed
+    in `waves` waves."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    words = ["alpha", "beta", "gamma", "delta", "epsilon", "zeta"]
+    doc_rows = [((" ".join(rng.choice(words, 24))).encode(), {"path": f"d{i}.txt"}) for i in range(n_docs)]
+    per_wave = n_q // waves
+    q_rows = [(" ".join(rng.choice(words, 6)), None, False, 2 * (i // per_wave) + 2, 1) for i in range(n_q)]
+    return doc_rows, q_rows
+
+
+class StageClock:
+    """Seconds inside each device stage of a pipeline run, read as bench.py's
+    `timed` wrappers read them (`bench.py:742-758`): embed inside the
+    embedder's coalesced flushes, retrieve inside the slab's search_batch,
+    generate inside the continuous batcher's prefill and step calls (its
+    own host-clock counters; bench.py wrapped the wave path's flush)."""
+
+    def __init__(self, emb, chat=None):
+        import threading
+
+        from pathway_tpu_torch.stdlib.indexing.host_indexes import VectorSlabIndex
+
+        self.seconds = {"embed": 0.0, "retrieve": 0.0}
+        self.embed_rows = 0
+        self.indexes: list = []
+        self._lock = threading.Lock()
+        self._cls = VectorSlabIndex
+        self._search = VectorSlabIndex.search_batch
+        self._emb, self._flush = emb, emb._batcher.flush_fn
+        self._cb = chat._cb if chat is not None else None
+        self._cb0 = self._cb_seconds()
+        clock = self
+
+        def flush(items):
+            t0 = time.perf_counter()
+            try:
+                return clock._flush(items)
+            finally:
+                with clock._lock:
+                    clock.seconds["embed"] += time.perf_counter() - t0
+                    clock.embed_rows += len(items)
+
+        def search_batch(index, items, *a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return clock._search(index, items, *a, **kw)
+            finally:
+                with clock._lock:
+                    clock.seconds["retrieve"] += time.perf_counter() - t0
+                    if all(index is not i for i in clock.indexes):
+                        clock.indexes.append(index)
+
+        emb._batcher.flush_fn = flush
+        VectorSlabIndex.search_batch = search_batch
+
+    def _cb_seconds(self) -> float:
+        return 0.0 if self._cb is None else self._cb.stats["prefill_seconds"] + self._cb.stats["step_seconds"]
+
+    def close(self) -> dict:
+        self._emb._batcher.flush_fn = self._flush
+        self._cls.search_batch = self._search
+        if self._cb is not None:
+            self.seconds["generate"] = self._cb_seconds() - self._cb0
+        return dict(self.seconds)
+
+
+def run_window(fn, on_card: bool) -> dict:
+    """Host seconds of `fn`; on the card also the device busy and idle
+    share over the same window (torch.profiler, all threads)."""
+    if on_card:
+        prof = profile_window(fn)
+        return dict(seconds=prof["window_ms"] / 1e3, device_busy_ms=prof["device_busy_ms"],
+                    device_idle_share=prof["device_idle_share"])
+    t0 = time.perf_counter()
+    fn()
+    return dict(seconds=time.perf_counter() - t0, device_busy_ms="not measured",
+                device_idle_share="not measured")
+
+
+def run_rag_pipeline(device, emb_kw: dict, chat_kw: dict, *, n_docs: int, n_q: int, waves: int,
+                     topk: int, new_tokens: int, chat_f32: bool) -> dict:
+    """bench.py's config-4 on-chip RAG rung (`bench.py:713-785`) through
+    `pw.run()`: DocumentStore over BruteForceKnnFactory with the default
+    TorchEmbedder, BaseRAGQuestionAnswerer over TorchLMChat, the
+    questions streamed in waves. With `chat_f32` the chat runs at f32 and
+    every answer the engine produced is held byte for byte to a direct
+    call of the chat on the same prompt (phase `rag_f32_equality`)."""
+    import torch
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch import TorchEmbedder, TorchLMChat
+    from pathway_tpu_torch.internals.parse_graph import G
+    from pathway_tpu_torch.models.transformer import embedder_config, lm_config
+    from pathway_tpu_torch.ops import _build
+    from pathway_tpu_torch.ops.attention import KERNEL
+    from pathway_tpu_torch.stdlib.indexing import BruteForceKnnFactory
+    from pathway_tpu_torch.xpacks.llm.document_store import DocumentStore
+    from pathway_tpu_torch.xpacks.llm.question_answering import BaseRAGQuestionAnswerer
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    cfg = embedder_config(**emb_kw)
+    emb = TorchEmbedder(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    lcfg = lm_config(dtype=torch.float32 if chat_f32 else torch.bfloat16, **chat_kw)
+    chat = TorchLMChat(lcfg, max_new_tokens=new_tokens, device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(1))
+    doc_rows, q_rows = rag_corpus(n_docs, n_q, waves, RAG_SEED)
+    prompts: list = []
+    submit = chat._cb.submit
+
+    def recording_submit(prompt):
+        fut = submit(prompt)
+        prompts.append((prompt, fut))
+        return fut
+
+    # warm-up outside the timed run: first calls set up cuBLAS handles
+    # and the chat's slot cache
+    emb.encode_many(["warm-up"])
+    submit("warm-up").result(timeout=600)
+    chat._cb.drain()
+    chat._cb.submit = recording_submit
+
+    G.clear()
+    docs = pw.debug.table_from_rows(pw.schema_from_types(data=bytes, _metadata=object), doc_rows)
+    store = DocumentStore(docs, retriever_factory=BruteForceKnnFactory(
+        dimensions=cfg.embed_dim, embedder=emb, device=dev))
+    answerer = BaseRAGQuestionAnswerer(chat, store, search_topk=topk)
+    queries = pw.debug.table_from_rows(answerer.AnswerQuerySchema, q_rows, is_stream=True)
+    answers = answerer.answer_query(queries)
+    got: list = []
+    pw.io.subscribe(
+        queries.join(answers, queries.id == answers.id).select(q=queries.prompt, a=answers.result),
+        on_change=lambda key, row, time, is_addition: got.append((row["q"], row["a"].value["response"])),
+    )
+    clock = StageClock(emb, chat)
+    dispatches0 = emb.dispatches
+    _build.reset_launch_counts()
+    try:
+        window = run_window(pw.run, on_card)
+    finally:
+        stages = clock.close()
+        chat._cb.submit = submit
+        G.clear()
+    launches = _build.LAUNCHES.get(KERNEL, 0)
+    dispatches = emb.dispatches - dispatches0
+    stage_sum = sum(stages.values())
+    row = dict(
+        phase="rag_f32_equality" if chat_f32 else "rag_pipeline", documents=n_docs, questions=n_q,
+        waves=waves, search_topk=topk, new_tokens=new_tokens,
+        chat_dtype="f32" if chat_f32 else "bf16", embedder_dtype="bf16",
+        **window, questions_per_s=n_q / window["seconds"], stage_seconds=stages, stage_sum=stage_sum,
+        overlap=1 - window["seconds"] / stage_sum if stage_sum else "not measured",
+        answer_rows=len(got), answered_questions=len({q for q, _ in got}),
+        attention_launches=launches, encoder_dispatches=dispatches, embedded_rows=clock.embed_rows,
+        rows_per_dispatch=clock.embed_rows / dispatches if dispatches else 0.0,
+        cb_stats=dict(chat._cb.stats),
+    )
+    ok = len(got) == n_q and row["answered_questions"] == len({r[0] for r in q_rows})
+    if chat_f32:
+        chat._cb.drain()
+
+        async def direct():
+            return await asyncio.gather(*(chat.__wrapped__(p) for p, _ in prompts))
+
+        engine = [f.result(timeout=600) for _, f in prompts]
+        direct_answers = asyncio.run(direct())
+        equal = sum(a == b for a, b in zip(engine, direct_answers))
+        row.update(prompts=len(prompts), equal_to_direct=equal,
+                   engine_answers_are_the_rows=sorted(engine) == sorted(a for _, a in got))
+        ok = ok and equal == len(prompts) == n_q and row["engine_answers_are_the_rows"]
+    emit(row)
+    if not ok:
+        raise AssertionError(f"the RAG pipeline did not answer every question as asked: {row}")
+    if on_card and (launches <= 0 or launches != cfg.n_layers * dispatches):
+        raise AssertionError(
+            f"the RAG pipeline's embeds did not go through the attention kernel: {launches} "
+            f"launches for {dispatches} encoder dispatches x {cfg.n_layers} layers"
+        )
+    chat._cb.drain()
+    return row
+
+
+def ingest_corpus(texts: list[str], n_docs: int, seed: int) -> list[str]:
+    """`n_docs` documents drawn with replacement from `texts`, each made
+    unique by an id token of its own."""
+    import numpy as np
+
+    pick = np.random.default_rng(seed).integers(0, len(texts), n_docs)
+    return [f"{texts[j]} doc{i:07d}" for i, j in enumerate(pick)]
+
+
+def run_rag_ingest(device, emb_kw: dict, texts: list[str], *, n_docs: int, waves: int,
+                   n_q: int, k: int) -> dict:
+    """A live document store at a deployment's size: `n_docs` documents
+    streamed in `waves` waves into DocumentStore with the app's
+    TokenCountSplitter(50, 250) and the default TorchEmbedder, then `n_q`
+    questions retrieved with `k`. Held to (i) a direct split of the same
+    documents and (ii) a VectorSlabIndex built directly from
+    `encode_many` over the same chunks on the same device, compared as
+    (score, text) after the re-sort."""
+    import numpy as np
+    import torch
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch import TorchEmbedder, VectorSlabIndex
+    from pathway_tpu_torch.internals.parse_graph import G
+    from pathway_tpu_torch.models.transformer import embedder_config
+    from pathway_tpu_torch.ops import _build
+    from pathway_tpu_torch.ops.attention import KERNEL
+    from pathway_tpu_torch.stdlib.indexing import BruteForceKnnFactory
+    from pathway_tpu_torch.xpacks.llm.document_store import DocumentStore
+    from pathway_tpu_torch.xpacks.llm.splitters import TokenCountSplitter
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    cfg = embedder_config(**emb_kw)
+    emb = TorchEmbedder(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    emb.encode_many(["warm-up"])  # outside the timed run, as in rag_pipeline
+    # word counts: tiktoken would fetch its encoding over the network on first use
+    splitter = TokenCountSplitter(min_tokens=50, max_tokens=250, tokenize_fn=str.split)
+    docs = ingest_corpus(texts, n_docs, seed=0)
+    rng = np.random.default_rng(1)
+    questions = [texts[j] for j in rng.choice(len(texts), n_q, replace=False)]
+    per_wave = -(-n_docs // waves)
+    doc_rows = [(d.encode(), {"path": f"doc{i}.txt"}, 2 * (i // per_wave) + 2, 1) for i, d in enumerate(docs)]
+    q_time = 2 * waves + 2  # after the last document wave
+
+    G.clear()
+    table = pw.debug.table_from_rows(pw.schema_from_types(data=bytes, _metadata=object), doc_rows, is_stream=True)
+    store = DocumentStore(table, retriever_factory=BruteForceKnnFactory(
+        dimensions=cfg.embed_dim, embedder=emb, device=dev), splitter=splitter)
+    rq = pw.debug.table_from_rows(
+        DocumentStore.RetrieveQuerySchema, [(q, k, None, None, q_time, 1) for q in questions], is_stream=True,
+    )
+    retrieved = rq.select(query=rq.query).with_columns(result=store.retrieve_query(rq).result)
+    chunks: dict[str, int] = {}
+    results: dict[str, list] = {}
+
+    def on_chunk(key, row, time, is_addition):
+        chunks[row["text"]] = chunks.get(row["text"], 0) + (1 if is_addition else -1)
+
+    def on_result(key, row, time, is_addition):
+        if is_addition:
+            res = row["result"].value
+            results[row["query"]] = sorted((float(d["dist"]), d["text"]) for d in res)
+
+    pw.io.subscribe(store.chunked_docs, on_change=on_chunk)
+    pw.io.subscribe(retrieved, on_change=on_result)
+    clock = StageClock(emb)
+    dispatches0 = emb.dispatches
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    try:
+        window = run_window(pw.run, on_card)
+    finally:
+        stages = clock.close()
+        G.clear()
+    launches = _build.LAUNCHES.get(KERNEL, 0)
+    dispatches = emb.dispatches - dispatches0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else "not measured"
+    (slab,) = clock.indexes
+    docs_t, valid_t = slab.device_docs()
+
+    # (i) the store holds exactly the direct split's chunks
+    want_chunks: dict[str, int] = {}
+    for d in docs:
+        for c, _meta in splitter.chunk(d):
+            want_chunks[c] = want_chunks.get(c, 0) + 1
+    held = {c: n for c, n in chunks.items() if n}
+    # (ii) top-k against a slab built directly on the same device
+    direct_texts = list(want_chunks)
+    direct = VectorSlabIndex(dimensions=cfg.embed_dim, reserved_space=len(direct_texts), device=dev)
+    cap = emb._plane.buckets.max_rows
+    t0 = time.perf_counter()
+    for s in range(0, len(direct_texts), cap):
+        for j, v in enumerate(emb.encode_many(direct_texts[s:s + cap])):
+            direct.add(s + j, v)
+    direct_build_s = time.perf_counter() - t0
+    qvecs = emb.encode_many(questions)
+    want = {
+        q: sorted((d, direct_texts[key]) for key, d in m)
+        for q, m in zip(questions, direct.search_batch([(v, k, None) for v in qvecs]))
+    }
+    mismatches, near_ties = [], 0
+    for q in questions:
+        got_q, want_q = results.get(q, []), want[q]
+        if len(got_q) != len(want_q):
+            mismatches.append((q, got_q, want_q))
+            continue
+        for (gd, gt), (wd, wt) in zip(got_q, want_q):
+            if abs(gd - wd) > INGEST_SCORE_ATOL:
+                mismatches.append((q, got_q, want_q))
+                break
+            near_ties += gt != wt
+    row = dict(
+        phase="rag_ingest", documents=n_docs, waves=waves, splitter="TokenCountSplitter(50, 250)",
+        chunks=sum(held.values()), **window,
+        documents_per_s=n_docs / window["seconds"], chunks_per_s=sum(held.values()) / window["seconds"],
+        stage_seconds=stages, attention_launches=launches, encoder_dispatches=dispatches,
+        embedded_rows=clock.embed_rows,
+        rows_per_dispatch=clock.embed_rows / dispatches if dispatches else 0.0,
+        slab_rows=len(slab), slab_slots=int(docs_t.shape[0]),
+        slab_bytes=dict(host_f32=int(slab.vectors.nbytes),
+                        device=int(docs_t.numel() * docs_t.element_size() + valid_t.numel())),
+        peak_mem_gb=peak_gb, chunks_equal_direct_split=held == want_chunks,
+        questions=n_q, k=k, answered=len(results), direct_build_s=direct_build_s,
+        score_atol=INGEST_SCORE_ATOL, near_ties=near_ties, mismatches=len(mismatches),
+        first_mismatch=str(mismatches[0])[:600] if mismatches else None,
+    )
+    emit(row)
+    if not row["chunks_equal_direct_split"] or len(results) != n_q or mismatches:
+        raise AssertionError(f"the ingested store disagrees with the direct build: {row}")
+    if on_card and (launches <= 0 or launches != cfg.n_layers * dispatches):
+        raise AssertionError(
+            f"ingest did not embed through the attention kernel: {launches} launches for "
+            f"{dispatches} encoder dispatches x {cfg.n_layers} layers"
+        )
+    return row
+
+
+def run_host_engine(device, *, wordcount_rows: int, emb_kw: dict, chat_kw: dict, rag: dict,
+                    ingest_texts: list[str], ingest: dict, workdir: Path) -> dict:
+    """The four phases of the host-engine slice, in order. Returns their
+    rows and the attention kernel's launches across the three RAG phases."""
+    wc = run_engine_wordcount(wordcount_rows, workdir)
+    pipe = run_rag_pipeline(device, emb_kw, chat_kw, chat_f32=False, **rag)
+    ing = run_rag_ingest(device, emb_kw, ingest_texts, **ingest)
+    eq = run_rag_pipeline(device, emb_kw, chat_kw, chat_f32=True, **rag)
+    launches = sum(r["attention_launches"] for r in (pipe, ing, eq))
+    return dict(wordcount=wc, rag_pipeline=pipe, rag_ingest=ing, rag_f32_equality=eq, launches=launches)
 
 
 # ------------------------------------------------------------ phase 2b
@@ -1099,6 +1526,7 @@ def run_generate(device, lm_kw: dict, chat_kw: dict, texts: list[str], *, batch:
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -1142,12 +1570,30 @@ def main() -> int:
 
     result = run_slice("cuda", FLAGSHIP, N_DOCS, DOC_BATCH, DOC_SEQ, ROOT)
 
+    # the host engine and the live-RAG pipeline on it, each RAG phase's
+    # launch count read across that phase alone
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        engine = run_host_engine(
+            "cuda", wordcount_rows=WORDCOUNT_ROWS, emb_kw=EMBEDDER_DEFAULT, chat_kw=CHAT_DEFAULT,
+            rag=dict(n_docs=RAG_DOCS, n_q=RAG_QUESTIONS, waves=RAG_WAVES, topk=RAG_TOPK,
+                     new_tokens=RAG_NEW),
+            ingest_texts=load_texts(ROOT),
+            ingest=dict(n_docs=INGEST_DOCS, waves=INGEST_WAVES, n_q=INGEST_QUESTIONS, k=INGEST_K),
+            workdir=Path(tmp),
+        )
+
     # the approximate tier runs no hand-written kernel (the IVF-PQ search
     # and the reranker are plain PyTorch, as the JAX package leaves them to
     # XLA): its launch counts are read across it all the same
     _build.reset_launch_counts()
-    run_ann("cuda", ann_rows=ANN_ROWS, vectors=result.pop("vectors"), query_vecs=result["query_vecs"],
-            query_keys=result["query_keys"], slab_p50_ms=result["knn"]["search_batch_p50_ms"],
+    vectors = result.pop("vectors")
+    ann_vectors = np.concatenate([vectors[:ANN_INDEX_DOCS], vectors[N_DOCS:]])
+    del vectors
+    run_ann("cuda", ann_rows=ANN_ROWS, vectors=ann_vectors, query_vecs=result["query_vecs"],
+            query_keys=[key - N_DOCS + ANN_INDEX_DOCS for key in result["query_keys"]],
+            slab_p50_ms=result["knn"]["search_batch_p50_ms"],
             churn_waves=CHURN_WAVES, churn_wave=CHURN_WAVE, reps=30)
     emit(dict(phase="ann_launches", kernel_launches=dict(_build.LAUNCHES)))
 
@@ -1165,7 +1611,7 @@ def main() -> int:
         name="fused_qkv_attention", route="cuda",
         source="pathway_tpu_torch/csrc/attention.cu",
         replaces="pathway_tpu/ops/attention.py:38",
-        launches=result["launches"],
+        launches=result["launches"] + engine["launches"],
         max_abs_err=max(r["max_abs_err"] for r in rows),
         ms=main_shape["ms"], plain_ms=main_shape["plain_ms"],
         bound_ms=main_shape["bound_ms"], bound_by=main_shape["bound_by"],

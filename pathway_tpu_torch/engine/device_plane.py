@@ -25,9 +25,9 @@ dispatches through one process-wide :class:`DevicePlane`:
   batching: one row of a leased multi-row KV cache per request.
 
 A failed dispatch raises to its caller: the port has no host path to
-degrade to. The JAX package also exports the slot counters to its
-metrics registry; the port's are read off the pool until the host
-layers are ported.
+degrade to. The slot counters export to the metrics registry as
+``pathway_serving_slot_*`` when the observability plane is armed, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -38,6 +38,8 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+
+from pathway_tpu_torch.internals import observability as _obs
 
 __all__ = [
     "BucketPolicy",
@@ -271,19 +273,49 @@ class SlotPool:
             slot = self._free.pop()
             self.acquired_total += 1
             active = self.n_slots - len(self._free)
-            if active > 1:
+            joined = active > 1
+            if joined:
                 self.joined_inflight += 1
-            if slot in self._ever_used:
+            refill = slot in self._ever_used
+            if refill:
                 self.refills += 1
             self._ever_used.add(slot)
             self.high_water = max(self.high_water, active)
-            return slot
+        plane = _obs.PLANE
+        if plane is not None:
+            m = plane.metrics
+            m.counter(
+                "pathway_serving_slot_acquires_total", {"pool": self.name},
+                help="decode slots handed to requests",
+            )
+            m.gauge(
+                "pathway_serving_slots_active", active, {"pool": self.name},
+                help="decode slots currently mid-generation",
+            )
+            if refill:
+                m.counter(
+                    "pathway_serving_slot_refills_total", {"pool": self.name},
+                    help="freed decode slots re-filled with a new request",
+                )
+            if joined:
+                m.counter(
+                    "pathway_serving_joined_inflight_total", {"pool": self.name},
+                    help="requests that joined an in-flight decode batch",
+                )
+        return slot
 
     def release(self, slot: int) -> None:
         with self._lock:
             if slot in self._free:
                 raise ValueError(f"slot {slot} released twice")
             self._free.append(slot)
+            active = self.n_slots - len(self._free)
+        plane = _obs.PLANE
+        if plane is not None:
+            plane.metrics.gauge(
+                "pathway_serving_slots_active", active, {"pool": self.name},
+                help="decode slots currently mid-generation",
+            )
 
     def snapshot(self) -> dict[str, int]:
         with self._lock:

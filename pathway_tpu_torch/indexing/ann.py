@@ -30,8 +30,10 @@ card a failed search raises: the JAX package's 3-strike degradation to
 numpy is not ported, and ``device=False`` is the only road to the numpy
 mirror. Below `train_min` rows the index IS the exact slab search.
 
-The port has no metrics registry yet: `counters` and `stats()` are what
-callers read.
+`counters` and `stats()` are what callers read; with the observability
+plane armed the index also publishes its gauges (``pathway_index_*``) to
+the metrics registry, as the JAX package does (its tier gauges wait with
+the tiers).
 """
 
 from __future__ import annotations
@@ -196,7 +198,7 @@ class IvfPqIndex(VectorSlabIndex):
         if _tiers_requested(tiered, hot_lists, ram_lists):
             raise NotImplementedError(
                 "the tiered IVF-PQ index (RAM/disk tiers over engine/spill.py) is "
-                "not ported yet; it comes with the host-engine slice"
+                "not ported yet; it is next in ROADMAP's queue of modules"
             )
         if sharded if sharded is not None else os.environ.get("PATHWAY_ANN_SHARDED") == "1":
             raise NotImplementedError(
@@ -248,6 +250,7 @@ class IvfPqIndex(VectorSlabIndex):
             "row_rebuilds": 0,
         }
         self.last_recall: float | None = None
+        self._metrics_dirty = True
 
     # ----------------------------------------------------------- pickling
 
@@ -269,6 +272,7 @@ class IvfPqIndex(VectorSlabIndex):
 
     def __setstate__(self, st):
         self.__dict__.update(st)
+        self._metrics_dirty = True
         self._gen_lock = threading.RLock()
         self._retrain_mutex = threading.Lock()
 
@@ -352,6 +356,7 @@ class IvfPqIndex(VectorSlabIndex):
         self._ann_dirty_cells.add((lst, pos))
 
     def _after_mutation(self) -> None:
+        self._metrics_dirty = True
         gen = self._gen
         if gen is not None and gen.tombstone_frac() > self.compact_frac:
             self._compact(gen)
@@ -384,6 +389,7 @@ class IvfPqIndex(VectorSlabIndex):
         self._ann_dev_version = -1
         self._ann_dirty_cells.clear()
         self.counters["compactions"] += 1
+        self._publish_metrics()
 
     # ---------------------------------------------------------- retraining
 
@@ -512,6 +518,7 @@ class IvfPqIndex(VectorSlabIndex):
             self._dirty_slots = None
             self.counters["retrains"] += 1
             self.counters["retrain_seconds"] += time.monotonic() - t0
+        self._publish_metrics()
 
     def wait_retrain(self, timeout: float = 60.0) -> None:
         t = self._retrain_thread
@@ -535,6 +542,8 @@ class IvfPqIndex(VectorSlabIndex):
             gen = self._gen
         if gen is None:
             self.counters["exact_searches"] += 1
+            if self._metrics_dirty:  # mutation-state gauges, per wave at
+                self._publish_metrics()  # most, never per idle search
             return super()._topk(qmat, k)
         self.counters["ann_searches"] += 1
         nprobe = (
@@ -542,7 +551,10 @@ class IvfPqIndex(VectorSlabIndex):
             or self.nprobe
             or _ivf.auto_nprobe(gen.n_lists)
         )
-        return self._ann_topk(qmat, k, gen, nprobe)
+        out = self._ann_topk(qmat, k, gen, nprobe)
+        if self._metrics_dirty:
+            self._publish_metrics()
+        return out
 
     def _ann_topk(self, qmat: np.ndarray, k: int, gen: _Generation, nprobe: int):
         if self.device is None:
@@ -747,7 +759,58 @@ class IvfPqIndex(VectorSlabIndex):
             hits += len(e_set & a_set)
         recall = (hits / total) if total else 1.0
         self.last_recall = recall
+        self._publish_metrics(recall_k=k)
         return recall
+
+    # ------------------------------------------------------------- metrics
+
+    def _publish_metrics(self, recall_k: int | None = None) -> None:
+        from pathway_tpu_torch.internals import observability as _obs
+
+        plane = _obs.PLANE
+        if plane is None:
+            return  # stay dirty: publish once the plane comes up
+        self._metrics_dirty = False
+        labels = {"index": self.name}
+        gen = self._gen
+        m = plane.metrics
+        m.gauge(
+            "pathway_index_size_rows", len(self.slot_of), labels,
+            help="live rows in the ANN index",
+        )
+        m.gauge(
+            "pathway_index_lists", gen.n_lists if gen else 0, labels,
+            help="coarse IVF lists in the current generation (0 = exact mode)",
+        )
+        m.gauge(
+            "pathway_index_tombstone_frac",
+            gen.tombstone_frac() if gen else 0.0, labels,
+            help="dead fraction of used cells (compaction trigger)",
+        )
+        m.gauge(
+            "pathway_index_retrain_seconds",
+            self.counters["retrain_seconds"], labels,
+            help="cumulative background-retrain wall seconds",
+        )
+        m.gauge(
+            "pathway_index_spills", self.counters["spills"], labels,
+            help="appends that overflowed their preferred list",
+        )
+        m.gauge(
+            "pathway_index_retrains", self.counters["retrains"], labels,
+            help="generation swaps since start",
+        )
+        m.gauge(
+            "pathway_index_compactions", self.counters["compactions"], labels,
+            help="tombstone compactions since start",
+        )
+        if recall_k is not None and self.last_recall is not None:
+            m.gauge(
+                "pathway_index_recall_at_k",
+                self.last_recall,
+                {**labels, "k": str(recall_k)},
+                help="sampled ANN recall@k vs the exact scan",
+            )
 
     # ------------------------------------------------------------- stats
 

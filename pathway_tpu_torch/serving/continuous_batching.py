@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from pathway_tpu_torch.engine.device_plane import get_device_plane
+from pathway_tpu_torch.internals import observability as _obs
 from pathway_tpu_torch.models import transformer
 from pathway_tpu_torch.xpacks.llm.embedders import pad_left_rows
 
@@ -232,6 +233,11 @@ class ContinuousBatcher:
             nxt = nxt.tolist()  # the step's one wait for the device
             self.stats["step_seconds"] += time.perf_counter() - t0
             self.stats["decode_steps"] += 1
+            if _obs.PLANE is not None:
+                _obs.PLANE.metrics.counter(
+                    "pathway_serving_decode_steps_total", {"pool": self.pool.name},
+                    help="continuous-batching decode steps dispatched",
+                )
             for slot, req in batch.items():
                 req.steps_done += 1
                 req.token = nxt[slot]

@@ -2,7 +2,7 @@
 device mirror.
 
 Counterpart of ``HostIndex`` and ``VectorSlabIndex`` in
-``pathway_tpu/stdlib/indexing/host_indexes.py``. The host keeps one
+``pathway_tpu_torch/stdlib/indexing/host_indexes.py``. The host keeps one
 growable f32 slab of (pre-normalized, for cosine) vectors with a validity
 mask. With a device, a bf16 mirror of the slab lives there and queries
 are batched into one masked distance + top-k (``ops.topk.knn_search_masked``).
@@ -12,18 +12,23 @@ grew or most rows changed. Deletions tombstone the mask.
 
 On a CUDA mirror a failed search raises: the port does not degrade to
 the host scan. ``device=False`` builds a CPU index that scans the host
-slab with numpy. Metadata-filtered search waits for the filters module.
+slab with numpy. Metadata-filtered queries scan the filtered candidate
+set on the host, as in the JAX package. ``LshIndex`` and ``Bm25Index``
+are numpy and copied from it.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Hashable
+from collections import defaultdict
+from typing import Any, Callable, Hashable
 
 import numpy as np
 import torch
 
 from pathway_tpu_torch.engine.device_plane import get_device_plane, resolve_device
+from pathway_tpu_torch.internals.keys import Key
+from pathway_tpu_torch.stdlib.indexing.filters import compile_filter
 
 Matches = list[tuple[Hashable, float]]
 
@@ -48,6 +53,22 @@ class HostIndex:
 
 def _as_vector(data: Any) -> np.ndarray:
     return np.asarray(data, dtype=np.float32).ravel()
+
+
+class _FilterCache:
+    def __init__(self) -> None:
+        self._cache: dict[str, Callable[[Any], bool]] = {}
+
+    def __reduce__(self):
+        # compiled predicates are closures; rebuild lazily after unpickle
+        # (operator-snapshot persistence pickles whole host indexes)
+        return (_FilterCache, ())
+
+    def get(self, expression: str) -> Callable[[Any], bool]:
+        fn = self._cache.get(expression)
+        if fn is None:
+            fn = self._cache[expression] = compile_filter(expression)
+        return fn
 
 
 class VectorSlabIndex(HostIndex):
@@ -90,6 +111,7 @@ class VectorSlabIndex(HostIndex):
         self._device_valid: torch.Tensor | None = None  # [padded] bool
         # slots changed since the last mirror sync (None: rebuild it all)
         self._dirty_slots: set[int] | None = None
+        self._filters = _FilterCache()
 
     def __getstate__(self):
         # the device mirror is rebuilt from the host slab on the first
@@ -203,29 +225,29 @@ class VectorSlabIndex(HostIndex):
         return self.search_batch([(query, k, metadata_filter)])[0]
 
     def search_batch(self, items: list[tuple[Any, int, str | None]]) -> list[Matches]:
-        if any(f for _q, _k, f in items):
-            raise NotImplementedError(
-                "metadata-filtered search needs the filters module, which "
-                "is not ported yet"
-            )
-        if not self.slot_of or not items:
+        if not self.slot_of:
             return [[] for _ in items]
-        kmax = max(k for _q, k, _f in items)
-        qmat = np.stack([_as_vector(q) for q, _k, _f in items])
-        # candidates are re-ranked by (score, key) so equal scores never
-        # depend on insertion order; the device path over-fetches 8 rows
-        # of headroom for ties at the k-th boundary, the host path returns
-        # every tie
-        top = self._topk(qmat, min(kmax + 8, len(self.slot_of)))
-        results: list[Matches] = []
-        for (_q, k, _f), (idxs, dists) in zip(items, top):
-            matches = [
-                (self.key_of[slot], float(d))
-                for slot, d in zip(idxs.tolist(), dists.tolist())
-                if slot in self.key_of
-            ]
-            matches.sort(key=lambda m: (m[1], _sort_value(m[0])))
-            results.append(matches[:k])
+        plain = [(i, q, k) for i, (q, k, f) in enumerate(items) if not f]
+        filtered = [(i, q, k, f) for i, (q, k, f) in enumerate(items) if f]
+        results: list[Matches] = [[] for _ in items]
+        if plain:
+            kmax = max(k for _i, _q, k in plain)
+            qmat = np.stack([_as_vector(q) for _i, q, _k in plain])
+            # candidates are re-ranked by (score, key) so equal scores never
+            # depend on insertion order; the device path over-fetches 8 rows
+            # of headroom for ties at the k-th boundary, the host path returns
+            # every tie
+            top = self._topk(qmat, min(kmax + 8, len(self.slot_of)))
+            for (i, _q, k), (idxs, dists) in zip(plain, top):
+                matches = [
+                    (self.key_of[slot], float(d))
+                    for slot, d in zip(idxs.tolist(), dists.tolist())
+                    if slot in self.key_of
+                ]
+                matches.sort(key=lambda m: (m[1], _sort_value(m[0])))
+                results[i] = matches[:k]
+        for i, q, k, f in filtered:
+            results[i] = self._search_filtered(_as_vector(q), k, f)
         return results
 
     def _topk(self, qmat: np.ndarray, k: int):
@@ -287,3 +309,206 @@ class VectorSlabIndex(HostIndex):
         qq = (qmat * qmat).sum(1, keepdims=True)
         dd = (docs * docs).sum(1)
         return np.maximum(qq - 2.0 * qmat @ docs.T + dd[None, :], 0.0)
+
+    def _search_filtered(self, vec: np.ndarray, k: int, flt: str) -> Matches:
+        pred = self._filters.get(flt)
+        slots = [s for s, key in self.key_of.items() if pred(self.metadata.get(key))]
+        if not slots:
+            return []
+        docs = self.vectors[slots]
+        dists = self._host_distances(vec[None, :], docs)[0]
+        matches = [(self.key_of[s], float(d)) for s, d in zip(slots, dists)]
+        matches.sort(key=lambda m: (m[1], _sort_value(m[0])))
+        return matches[:k]
+
+
+class LshIndex(HostIndex):
+    """Locality-sensitive hashing over random projections.
+
+    Reference parity: stdlib/ml/classifiers/_lsh.py (random projections,
+    bucket assignment) + _knn_lsh.py (bucketed candidate scan). OR-AND
+    scheme: `n_or` tables each of `n_and` concatenated hyperplane bits.
+    """
+
+    def __init__(
+        self,
+        dimensions: int | None = None,
+        n_or: int = 4,
+        n_and: int = 8,
+        bucket_length: float = 2.0,
+        metric: str = "l2",
+        seed: int = 0,
+        projection: Any = None,
+        distance: Any = None,
+    ):
+        """`projection` (vec -> sequence of per-table bucket ids) and
+        `distance` ((query, doc) -> float) plug user callables into the
+        bucket assignment and the candidate rescore — the generic-LSH
+        contract of the reference's knn_lsh_generic_classifier_train
+        (ml/classifiers/_knn_lsh.py:135). Defaults draw OR-AND hyperplane
+        projections and use the named metric."""
+        self.dim = dimensions
+        self.n_or = n_or
+        self.n_and = n_and
+        self.bucket_length = bucket_length
+        self.metric = metric
+        self.seed = seed
+        self.custom_projection = projection
+        self.custom_distance = distance
+        self.projections: list[np.ndarray] | None = None
+        self.offsets: list[np.ndarray] | None = None
+        self.buckets: list[dict[tuple, set[Key]]] = [defaultdict(set) for _ in range(n_or)]
+        self.vectors: dict[Key, np.ndarray] = {}
+        self.metadata: dict[Key, Any] = {}
+        self._filters = _FilterCache()
+
+    def _ensure(self, dim: int) -> None:
+        if self.custom_projection is not None:
+            return
+        if self.projections is None:
+            self.dim = self.dim or dim
+            rng = np.random.default_rng(self.seed)
+            self.projections = [
+                rng.normal(size=(self.dim, self.n_and)).astype(np.float32)
+                for _ in range(self.n_or)
+            ]
+            self.offsets = [
+                rng.uniform(0, self.bucket_length, size=self.n_and).astype(np.float32)
+                for _ in range(self.n_or)
+            ]
+
+    def _bucket_ids(self, vec: np.ndarray) -> list:
+        if self.custom_projection is not None:
+            from pathway_tpu_torch.engine.core import freeze_value
+
+            ids = [freeze_value(b) for b in self.custom_projection(vec)]
+            if len(ids) > len(self.buckets):  # grow to the callable's L
+                self.buckets.extend(
+                    defaultdict(set) for _ in range(len(ids) - len(self.buckets))
+                )
+            return ids
+        return [
+            tuple(np.floor((vec @ proj + off) / self.bucket_length).astype(np.int64))
+            for proj, off in zip(self.projections, self.offsets)
+        ]
+
+    def add(self, key: Key, data: Any, metadata: Any = None) -> None:
+        vec = _as_vector(data)
+        self._ensure(vec.shape[0])
+        self.remove(key)
+        self.vectors[key] = vec
+        self.metadata[key] = metadata
+        for table, bid in zip(self.buckets, self._bucket_ids(vec)):
+            table[bid].add(key)
+
+    def remove(self, key: Key) -> None:
+        vec = self.vectors.pop(key, None)
+        if vec is None:
+            return
+        self.metadata.pop(key, None)
+        for table, bid in zip(self.buckets, self._bucket_ids(vec)):
+            table[bid].discard(key)
+
+    def search(self, query: Any, k: int, metadata_filter: str | None = None) -> Matches:
+        if not self.vectors:
+            return []
+        vec = _as_vector(query)
+        self._ensure(vec.shape[0])
+        candidates: set[Key] = set()
+        for table, bid in zip(self.buckets, self._bucket_ids(vec)):
+            candidates |= table.get(bid, set())
+        if metadata_filter:
+            pred = self._filters.get(metadata_filter)
+            candidates = {c for c in candidates if pred(self.metadata.get(c))}
+        if not candidates:
+            return []
+        keys = list(candidates)
+        if self.custom_distance is not None:
+            dists = [
+                float(self.custom_distance(vec, self.vectors[c])) for c in keys
+            ]
+        else:
+            docs = np.stack([self.vectors[c] for c in keys])
+            if self.metric in ("cos", "cosine"):
+                qn = vec / max(np.linalg.norm(vec), 1e-12)
+                dn = docs / np.maximum(
+                    np.linalg.norm(docs, axis=1, keepdims=True), 1e-12
+                )
+                dists = 1.0 - dn @ qn
+            else:
+                dists = np.linalg.norm(docs - vec[None, :], axis=1) ** 2
+        matches = [(key, float(d)) for key, d in zip(keys, dists)]
+        matches.sort(key=lambda m: (m[1], m[0].value))
+        return matches[:k]
+
+
+_TOKEN_SPLIT = None
+
+
+def _bm25_tokenize(text: str) -> list[str]:
+    import re
+
+    global _TOKEN_SPLIT
+    if _TOKEN_SPLIT is None:
+        _TOKEN_SPLIT = re.compile(r"[a-z0-9]+")
+    return _TOKEN_SPLIT.findall(text.lower())
+
+
+class Bm25Index(HostIndex):
+    """In-memory BM25 inverted index (Okapi BM25, k1/b standard constants).
+
+    Reference parity: TantivyIndex (src/external_integration/
+    tantivy_integration.rs:16). Scores are returned NEGATED so that the
+    uniform 'smaller = closer' distance convention of the index layer holds.
+    """
+
+    K1 = 1.2
+    B = 0.75
+
+    def __init__(self) -> None:
+        self.postings: dict[str, dict[Key, int]] = defaultdict(dict)
+        self.doc_len: dict[Key, int] = {}
+        self.metadata: dict[Key, Any] = {}
+        self._filters = _FilterCache()
+
+    def add(self, key: Key, data: Any, metadata: Any = None) -> None:
+        self.remove(key)
+        terms = _bm25_tokenize(str(data))
+        self.doc_len[key] = len(terms)
+        self.metadata[key] = metadata
+        for t in terms:
+            self.postings[t][key] = self.postings[t].get(key, 0) + 1
+
+    def remove(self, key: Key) -> None:
+        if key not in self.doc_len:
+            return
+        del self.doc_len[key]
+        self.metadata.pop(key, None)
+        for t in list(self.postings):
+            self.postings[t].pop(key, None)
+            if not self.postings[t]:
+                del self.postings[t]
+
+    def search(self, query: Any, k: int, metadata_filter: str | None = None) -> Matches:
+        n = len(self.doc_len)
+        if n == 0:
+            return []
+        avg_len = sum(self.doc_len.values()) / n
+        scores: dict[Key, float] = defaultdict(float)
+        for t in _bm25_tokenize(str(query)):
+            plist = self.postings.get(t)
+            if not plist:
+                continue
+            idf = math.log(1.0 + (n - len(plist) + 0.5) / (len(plist) + 0.5))
+            for key, tf in plist.items():
+                dl = self.doc_len[key]
+                scores[key] += idf * (
+                    tf * (self.K1 + 1.0)
+                    / (tf + self.K1 * (1.0 - self.B + self.B * dl / avg_len))
+                )
+        if metadata_filter:
+            pred = self._filters.get(metadata_filter)
+            scores = {key: s for key, s in scores.items() if pred(self.metadata.get(key))}
+        # key tie-break: scores must not depend on dict/insertion order
+        ranked = sorted(scores.items(), key=lambda kv: (-kv[1], kv[0].value))[:k]
+        return [(key, -s) for key, s in ranked]

@@ -1,1 +1,4 @@
-"""Extension packs of the port."""
+"""pw.xpacks — extension packs (llm)."""
+from pathway_tpu_torch.xpacks import llm
+
+__all__ = ["llm"]

@@ -1,11 +1,13 @@
-"""The port's text embedder: hash tokenizer + the flagship encoder.
+"""Embedders — text -> vector UDFs.
 
-Counterpart of ``JaxEmbedder`` in ``pathway_tpu/xpacks/llm/embedders.py``
-with the same tokenizer, the same row and sequence buckets and the same
-wave coalescer. It is not a ``pw.UDF`` yet: the host engine is not
-ported. ``encode_many(texts)`` encodes synchronously; ``await
-embed(text)`` goes through the coalescer, which folds concurrent calls
-into one dispatch.
+Counterpart of ``pathway_tpu/xpacks/llm/embedders.py``: ``BaseEmbedder``
+and the port's own model embedder ``TorchEmbedder`` (hash tokenizer + the
+flagship encoder, the counterpart of ``JaxEmbedder``) with the same
+tokenizer, row and sequence buckets and wave coalescer. As a ``pw.UDF``
+its async ``__wrapped__`` submits one text to the coalescer, which folds
+every row of a wave into one encoder dispatch on the card;
+``encode_many(texts)`` encodes synchronously. The JAX package's remote
+API embedders (OpenAI, LiteLLM, Gemini, sentence-transformers) wait.
 """
 
 from __future__ import annotations
@@ -16,7 +18,10 @@ from typing import Any
 import numpy as np
 import torch
 
+import pathway_tpu_torch as pw
 from pathway_tpu_torch.engine.device_plane import get_device_plane
+from pathway_tpu_torch.internals import udfs
+from pathway_tpu_torch.internals.expression import ColumnExpression
 from pathway_tpu_torch.models.tokenizer import HashTokenizer
 from pathway_tpu_torch.models.transformer import (
     Params,
@@ -24,6 +29,15 @@ from pathway_tpu_torch.models.transformer import (
     TransformerEncoder,
     embedder_config,
 )
+from pathway_tpu_torch.xpacks.llm._utils import _coerce_sync
+
+
+class BaseEmbedder(pw.UDF):
+    def get_embedding_dimension(self, **kwargs: Any) -> int:
+        return len(_coerce_sync(self.__wrapped__)(".", **kwargs))
+
+    def __call__(self, input: ColumnExpression, *args: Any, **kwargs: Any) -> ColumnExpression:
+        return super().__call__(input, *args, **kwargs)
 
 
 def bucket_len(longest: int, cap: int) -> int:
@@ -55,7 +69,7 @@ def pad_left_rows(
     return ids, mask
 
 
-class TorchEmbedder:
+class TorchEmbedder(BaseEmbedder):
     """Wave-batched text embedder on the card (or on `device`).
 
     Pass `params` (a parameter tree, e.g. from
@@ -70,9 +84,11 @@ class TorchEmbedder:
         tokenizer: Any = None,
         *,
         max_batch: int = 4096,
+        cache_strategy: udfs.CacheStrategy | None = None,
         device: str | torch.device | None = None,
         generator: torch.Generator | None = None,
     ):
+        super().__init__(executor=udfs.async_executor(), cache_strategy=cache_strategy)
         self.config = config or embedder_config(
             vocab_size=32768, d_model=256, n_heads=8, n_layers=4, d_ff=1024,
             max_len=128, embed_dim=256,
@@ -120,9 +136,9 @@ class TorchEmbedder:
         out = self.encode_tokens(ids, mask).cpu().numpy()
         return [out[i] for i in range(len(texts))]
 
-    async def embed(self, text: str) -> np.ndarray:
-        """One text's embedding, coalesced with concurrent calls."""
-        return await self._batcher.submit(text)
+    async def __wrapped__(self, input: str, **kwargs: Any) -> np.ndarray:
+        """One text's embedding, coalesced with the rest of its wave."""
+        return await self._batcher.submit(input)
 
     def encode_many(self, texts: list[str]) -> list[np.ndarray]:
         """Synchronous bulk encode (at most the row bucket cap per call)."""

@@ -1,10 +1,11 @@
-"""The port's chat model: generation with the framework's own causal LM.
+"""Chat wrappers — LLMs as UDFs on tables.
 
-Counterpart of ``JaxLMChat`` in ``pathway_tpu/xpacks/llm/llms.py``: the
-same defaults, tokenizer, buckets and output format (``"<id> <id> ..."``).
-It is not a ``pw.UDF`` yet: the host engine is not ported. ``await
-chat.__wrapped__(messages)`` is the UDF's call: a prompt string or a list
-of ``{"role", "content"}`` messages in, the generated token string out.
+Counterpart of ``pathway_tpu/xpacks/llm/llms.py``: ``BaseChat`` (a
+``pw.UDF`` whose async ``__wrapped__(messages)`` returns the answer) and
+the port's own model chat ``TorchLMChat``, the counterpart of
+``JaxLMChat``: the same defaults, tokenizer, buckets and output format
+(``"<id> <id> ..."``), generating on the card. The JAX package's remote
+API chats (OpenAI, LiteLLM, Cohere, HF pipelines) wait.
 """
 
 from __future__ import annotations
@@ -15,7 +16,11 @@ from typing import Any
 
 import torch
 
+import pathway_tpu_torch as pw
 from pathway_tpu_torch.engine.device_plane import DevicePlane, get_device_plane
+from pathway_tpu_torch.internals import udfs
+from pathway_tpu_torch.internals.expression import ColumnExpression
+from pathway_tpu_torch.internals.json import Json
 from pathway_tpu_torch.models.tokenizer import HashTokenizer
 from pathway_tpu_torch.models.transformer import (
     Params,
@@ -25,11 +30,47 @@ from pathway_tpu_torch.models.transformer import (
     init_kv_cache,
     lm_config,
 )
-from pathway_tpu_torch.serving.continuous_batching import ContinuousBatcher, continuous_batching_on
 from pathway_tpu_torch.xpacks.llm.embedders import pad_left_rows
 
 
-class TorchLMChat:
+def _prep_message_log(messages: Any, verbose: bool) -> str:
+    if verbose:
+        return repr(messages)
+    return repr(messages)[:500]
+
+
+def prompt_chat_single_qa(question: str) -> Json:
+    """Wrap a plain question into the single-turn chat message format."""
+    return Json([{"role": "user", "content": question}])
+
+
+class BaseChat(pw.UDF):
+    """Common chat surface: __wrapped__(messages, **kwargs) -> str."""
+
+    kwargs: dict[str, Any]
+
+    def __init__(
+        self,
+        *,
+        capacity: int | None = None,
+        retry_strategy: udfs.AsyncRetryStrategy | None = None,
+        cache_strategy: udfs.CacheStrategy | None = None,
+        **chat_kwargs: Any,
+    ):
+        executor = udfs.async_executor(
+            capacity=capacity, retry_strategy=retry_strategy
+        )
+        super().__init__(executor=executor, cache_strategy=cache_strategy)
+        self.kwargs = dict(chat_kwargs)
+
+    def _accepts_call_arg(self, arg_name: str) -> bool:
+        return True
+
+    def __call__(self, messages: ColumnExpression, **kwargs: Any) -> ColumnExpression:
+        return super().__call__(messages, **kwargs)
+
+
+class TorchLMChat(BaseChat):
     """Generation on the card (or on `device`) with the port's causal LM.
 
     Pass `params` (e.g. from ``models.convert.params_from_numpy``) for a
@@ -57,7 +98,9 @@ class TorchLMChat:
         *,
         device: str | torch.device | None = None,
         generator: torch.Generator | None = None,
+        **kwargs: Any,
     ):
+        super().__init__(**kwargs)
         self.config = config or lm_config(
             vocab_size=32768, d_model=256, n_heads=8, n_layers=4, d_ff=1024, max_len=512,
         )
@@ -86,6 +129,12 @@ class TorchLMChat:
             ),
         )
         self._batcher = self._plane.coalescer(self._generate_batch, max_batch=max_batch)
+        # imported here: the serving package imports this xpack's helpers
+        from pathway_tpu_torch.serving.continuous_batching import (
+            ContinuousBatcher,
+            continuous_batching_on,
+        )
+
         if continuous_batching is None:
             continuous_batching = continuous_batching_on()
         self._cb: ContinuousBatcher | None = None
@@ -128,10 +177,11 @@ class TorchLMChat:
     async def __wrapped__(self, messages: Any, **kwargs: Any) -> str:
         import asyncio
 
-        if isinstance(messages, list):
-            prompt = "\n".join(m["content"] for m in messages)
+        msgs = messages.value if isinstance(messages, Json) else messages
+        if isinstance(msgs, list):
+            prompt = "\n".join(m["content"] for m in msgs)
         else:
-            prompt = str(messages)
+            prompt = str(msgs)
         if self._cb is not None:
             return await asyncio.wrap_future(self._cb.submit(prompt))
         return await self._batcher.submit(prompt)
