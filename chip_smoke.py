@@ -15,8 +15,13 @@ coalesced), self-retrieval over the 1M-doc slab, exact and int8 search
 timed. The approximate tier follows: bench.py's 1M x 64 ANN corpus built
 into an IVF-PQ index and searched at bench.py's operating point (against
 exact search and the numpy oracle, split by stage against its bound), then
-``IvfPqIndex`` over the 1M flagship-width rows (retrain, search, churn in
-waves, the reranked nprobe-1 wrapper). Then it generates with bench.py's
+``IvfPqIndex`` over half a million flagship-width rows (retrain, search,
+churn in waves, the reranked nprobe-1 wrapper), and the same index with
+its lists in RAM/disk tiers over 65,536 of those rows (the hot route on
+the card, cold lists read from disk, churn, the tier contract). Between
+the RAG phases and the approximate tier, ``VectorStoreServer`` serves the
+texts over REST with its default embedder, held to a direct slab search,
+and ``EncoderReranker`` is held to the CPU. Then it generates with bench.py's
 Gemma-2B-shaped decoder at full width (vocab 256128, d_model 2048, 8
 heads, 18 layers, d_ff 16384, max_len 1024; random bf16 weights from a
 seed): ``generate_serving`` at batch 32 (decode step against its bound, a
@@ -31,6 +36,7 @@ it exits non-zero too.
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import json
 import math
 import statistics
@@ -117,6 +123,17 @@ ANN_MIN_RECALL = 0.93  # the JAX package's 1-CPU run recorded 0.941 on these byt
 ANN_INDEX_DOCS = N_DOCS // 2
 # churn of the incremental index: waves of removes and fresh adds, a search after each
 CHURN_WAVES, CHURN_WAVE = 16, 256
+# the tiered index: the same rows cut to 65,536 (all text rows, the rest
+# random-token rows): its host numpy retrain took 149 s at 131,072 rows on
+# the 8 host CPUs of an H100 machine; m 48 as the flagship width's
+# auto_subvectors; 4 churn waves, a rebalance after each
+TIERED_ROWS, TIERED_SUBVECTORS, TIERED_CHURN_WAVES = 65_536, 48, 4
+# the vector store: the texts phase's chunks behind VectorStoreServer's
+# default embedder, 32 REST queries at k 4
+VS_QUERIES, VS_K = 32, 4
+# EncoderReranker's scores on the card against the CPU's (same weights):
+# the two devices round the bf16 activations at other points
+RERANK_ATOL = 2.0**-6
 
 # generation: bench.py's Gemma-2B-shaped decoder ("config 5", bench.py:297-304)
 # at its full width and depth, random bf16 weights from seed 0
@@ -472,7 +489,7 @@ def run_slice(device, cfg_kw: dict, n_docs: int, batch: int, seq: int, root: Pat
     return dict(
         encode=enc, texts=texts_row, knn=knn, launches=launches,
         vectors=index.vectors[: index.n_slots], query_vecs=qvecs,
-        query_keys=[n_docs + j for j in qsel],
+        query_keys=[n_docs + j for j in qsel], text_chunks=texts,
     )
 
 
@@ -1212,6 +1229,300 @@ def run_ann(device, *, ann_rows: int, vectors, query_vecs, query_keys, slab_p50_
     return dict(build=build, search=srch, index=idx_row, churn=churn, rerank=rr)
 
 
+# ------------------------------------------------------------ phase 2c
+
+
+def run_ann_tiered(device, *, vectors, query_vecs, query_keys, churn_waves: int, churn_wave: int,
+                   reps: int) -> dict:
+    """`ann_tiered`: `IvfPqIndex(tiered=True)` over `vectors` at the
+    flagship width with the auto budgets (a quarter of the lists hot, half
+    in RAM, the rest sealed on disk), searched with run_slice's text
+    queries. Before any migration the tiered search gives the all-resident
+    search of the same generation byte for byte; after a rebalance a batch
+    of repeated queries whose lists are all hot runs on the card over the
+    hot sub-cube, and a batch that reaches cold lists streams them from
+    disk into the numpy search. Then churn in waves with a rebalance
+    between them, and the tier contract. Runs on the CPU too (at a small
+    size), for a rehearsal."""
+    import numpy as np
+    import torch
+
+    from pathway_tpu_torch.indexing import TIER_COLD, TIER_HOT, TIER_NAMES, IvfPqIndex, verify_tier_state
+    from pathway_tpu_torch.ops import ivf
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    timer = host_ms if on_card else _cpu_ms
+    n, d = vectors.shape
+    k = TOP_K
+    # train_min past the row count: one explicit retrain builds the generation
+    ann = IvfPqIndex(
+        dimensions=d, reserved_space=n, subvectors=TIERED_SUBVECTORS, train_min=n + 1,
+        background_retrain=False, tiered=True, background_tiering=False, device=dev,
+    )
+    t0 = time.perf_counter()
+    for i in range(n):
+        ann.add(i, vectors[i])
+    add_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ann.retrain_now()
+    retrain_s = time.perf_counter() - t0
+    gen, ts = ann._gen, ann._tiers
+    nprobe = ivf.auto_nprobe(gen.n_lists)
+    qmat = np.stack(query_vecs).astype(np.float32)
+    items = [(v, k, None) for v in qmat]
+
+    # -- before any migration: the same generation searched all-resident
+    before_route = dict(ann.counters)
+    got = ann._topk(qmat, k)
+    want = ann._ann_topk_host(qmat, k, gen, nprobe)
+    route0 = "device" if ann.counters["tier_device_searches"] > before_route["tier_device_searches"] else "host"
+    if route0 == "host":
+        equal_before = all(np.array_equal(gs, ws) and np.array_equal(gd, wd) for (gs, gd), (ws, wd) in zip(got, want))
+    else:  # the card's f32 sums against numpy's: the same slots, distances within 1e-5
+        equal_before = all(
+            np.array_equal(np.sort(gs), np.sort(ws)) and np.allclose(np.sort(gd), np.sort(wd), atol=1e-5)
+            for (gs, gd), (ws, wd) in zip(got, want)
+        )
+
+    def exact_keys(qs):
+        out = []
+        for slots_r, d_r in ann._topk_host(qs, k):
+            order = np.lexsort((slots_r, d_r))[:k]
+            out.append([ann.key_of[int(s)] for s in slots_r[order]])
+        return out
+
+    def probed_tiers(batch, **kw):
+        """Search `batch` once; the lists it probed (their access counts
+        rose), by tier, and the route it took."""
+        acc0, c0 = ts.accesses.copy(), dict(ann.counters)
+        res = ann.search_batch(batch, **kw)
+        probed = np.flatnonzero(ts.accesses > acc0)
+        route = "device" if ann.counters["tier_device_searches"] > c0["tier_device_searches"] else "host"
+        counts = {name: int((ts.tier[probed] == ti).sum()) for ti, name in enumerate(TIER_NAMES)}
+        return res, counts, route
+
+    # -- the hot route: a few queries searched until their lists rank first
+    hot_q: list[int] = []
+    union: set[int] = set()
+    for j in range(len(qmat)):
+        lists = set(np.argsort(-(qmat[j] / np.linalg.norm(qmat[j])) @ gen.centroids.T)[:nprobe].tolist())
+        if len(union | lists) <= ts.hot_budget:
+            hot_q.append(j)
+            union |= lists
+    for _ in range(8):
+        ann.search_batch([items[j] for j in hot_q])
+    moved = ann.rebalance_tiers_now()
+    hot_items = [items[hot_q[i % len(hot_q)]] for i in range(len(items))]  # repeated queries
+    hot_res, hot_counts, hot_route = probed_tiers(hot_items)
+    cold_lists = [lst for lst in np.flatnonzero(ts.tier == TIER_COLD) if gen.fill[lst] > 0]
+    cold_slots = [int(gen.slots[lst][gen.valid[lst]][0]) for lst in cold_lists[: len(items)]]
+    cold_items = [(ann.vectors[s].astype(np.float32), k, None) for s in cold_slots]
+    cold_res, cold_counts, cold_route = probed_tiers(cold_items)
+    text_res, text_counts, text_route = probed_tiers(items)
+    c0 = dict(ann.counters)
+    hot_p50 = timer(lambda: ann.search_batch(hot_items), reps)
+    cold_p50 = timer(lambda: ann.search_batch(cold_items), max(3, reps // 3))
+    text_p50 = timer(lambda: ann.search_batch(items), max(3, reps // 3))
+    routes = {r: ann.counters[f"tier_{r}_searches"] - c0[f"tier_{r}_searches"] for r in ("device", "host")}
+    keys_got = [[key for key, _ in r] for r in text_res]
+    cold_self = sum(bool(r) and r[0][0] == ann.key_of[s] for r, s in zip(cold_res, cold_slots))
+    per_tier = {}
+    for ti, name in enumerate(TIER_NAMES):
+        lists = np.flatnonzero(ts.tier == ti)
+        per_tier[name] = dict(lists=int(lists.size), rows=int(gen.valid[lists].sum()),
+                              code_bytes=int(lists.size * gen.cap * gen.cube.shape[2]))
+    per_tier["cold"]["disk_bytes"] = ts.store.bytes_total
+    whole = sum(a.nbytes for a in (gen.cube, gen.valid, gen.slots, gen.centroids, gen.codebooks))
+    row = dict(
+        phase="ann_tiered", rows=n, dim=d, subvectors=gen.cube.shape[2], lists=gen.n_lists, cap=gen.cap,
+        nprobe=nprobe, hot_budget=ts.hot_budget, ram_budget=ts.ram_budget, add_s=add_s, retrain_s=retrain_s,
+        route_before_migration=route0, equal_to_resident_before_migration=bool(equal_before),
+        rebalance=moved, tiers=per_tier, hot_mirror_device_bytes=ann.tier_device_bytes(),
+        whole_cube_device_bytes=int(whole), hot_queries=len(hot_q), hot_batch_route=hot_route,
+        cold_batch_route=cold_route, text_batch_route=text_route,
+        probed_lists_by_tier=dict(hot_batch=hot_counts, cold_batch=cold_counts, text_batch=text_counts),
+        hot_p50_ms=hot_p50, cold_p50_ms=cold_p50, text_p50_ms=text_p50, timed_routes=routes,
+        recall_at_10=_recall(keys_got, exact_keys(qmat), k),
+        self_top1=int(sum(r[0] == key for r, key in zip(keys_got, query_keys))),
+        cold_self_top1=int(cold_self), cold_queries=len(cold_items),
+    )
+    if on_card:
+        row["hot_profile"] = profile_stages(lambda: ann.search_batch(hot_items), 10)
+    if (not equal_before or hot_route != "device" or cold_route != "host" or cold_counts["cold"] == 0
+            or hot_counts["warm"] or hot_counts["cold"] or row["self_top1"] != len(items)):
+        emit(row)
+        raise AssertionError(f"the tiered index took the wrong route or disagreed: {row}")
+
+    # -- churn in waves, a rebalance between them
+    rng = np.random.default_rng(4)
+    protected = set(query_keys)
+    leaks, next_key, added = 0, n, []
+    t0 = time.perf_counter()
+    for _ in range(churn_waves):
+        live = np.fromiter(ann.slot_of, np.int64, len(ann.slot_of))
+        gone = [int(x) for x in rng.choice(live, churn_wave, replace=False) if int(x) not in protected]
+        for key in gone:
+            ann.remove(key)
+        base = vectors[rng.integers(0, n, churn_wave)]
+        fresh = base + 0.05 * rng.standard_normal(base.shape, dtype=np.float32)
+        fresh /= np.linalg.norm(fresh, axis=1, keepdims=True)
+        for vec in fresh:
+            ann.add(next_key, vec)
+            added.append((next_key, vec))
+            protected.add(next_key)
+            next_key += 1
+        live_keys = set(ann.slot_of)
+        batch = items + [(v, k, None) for _key, v in added[-len(items):]] + cold_items
+        leaks += sum(not {key for key, _ in r} <= live_keys for r in ann.search_batch(batch))
+        ann.rebalance_tiers_now()
+    churn_s = time.perf_counter() - t0
+    verify_tier_state(ann)
+    found = sum(
+        any(kk == key for kk, _ in r)
+        for j in range(0, len(added), 32)
+        for (key, _v), r in zip(added[j:j + 32], ann.search_batch([(v, k, None) for _key, v in added[j:j + 32]]))
+    )
+    row.update(
+        churn_waves=churn_waves, churn_wave=churn_wave, churn_s=churn_s, results_outside_live=leaks,
+        added=len(added), added_found=found, promotions=ts.promotions, demotions=ts.demotions,
+        runs=ts.store.run_count, verify_tier_state="passed",
+        lists_per_tier_after=ann.stats()["tiers"]["lists_per_tier"],
+        route_counts={r: ann.counters[f"tier_{r}_searches"] for r in ("device", "host")},
+    )
+    emit(row)
+    if leaks or found != len(added):
+        raise AssertionError(f"the tiered index went wrong under churn: {row}")
+    del ann
+    if on_card:
+        torch.cuda.empty_cache()
+    return row
+
+
+def run_vector_store(device, emb_kw: dict, texts: list[str], *, n_queries: int, k: int) -> dict:
+    """`vector_store`: `VectorStoreServer` over the texts phase's chunks
+    with its default embedder (`TorchEmbedder`, on the card), served over
+    REST on localhost and queried through `VectorStoreClient`. Held to a
+    `VectorSlabIndex` built directly from the same embedder's embeddings,
+    compared as (distance, text) after the re-sort; then `EncoderReranker`
+    scores of the answers on the card against the same weights on the
+    CPU. Runs on the CPU too (at a small size, the server given a CPU
+    embedder and index), for a rehearsal."""
+    import socket
+
+    import numpy as np
+    import torch
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch import TorchEmbedder, VectorSlabIndex
+    from pathway_tpu_torch.internals import run as run_mod
+    from pathway_tpu_torch.internals.parse_graph import G
+    from pathway_tpu_torch.models.transformer import embedder_config
+    from pathway_tpu_torch.ops import _build
+    from pathway_tpu_torch.ops.attention import KERNEL
+    from pathway_tpu_torch.stdlib.indexing import BruteForceKnnFactory
+    from pathway_tpu_torch.xpacks.llm.rerankers import EncoderReranker
+    from pathway_tpu_torch.xpacks.llm.vector_store import VectorStoreClient, VectorStoreServer
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    G.clear()
+    rows = [(t.encode(), {"path": f"chunk{i}"}) for i, t in enumerate(texts)]
+    docs = pw.debug.table_from_rows(pw.schema_from_types(data=bytes, _metadata=object), rows)
+    if on_card:
+        server = VectorStoreServer(docs)  # the default TorchEmbedder and slab, on the card
+        emb = server.embedder
+        if dataclasses.asdict(emb.config) != dataclasses.asdict(embedder_config(**emb_kw)):
+            raise AssertionError(f"the default embedder is not {emb_kw}: {emb.config}")
+    else:
+        emb = TorchEmbedder(embedder_config(**emb_kw), device=dev)
+        server = VectorStoreServer(docs, embedder=emb, index_factory=BruteForceKnnFactory(
+            dimensions=emb.config.embed_dim, embedder=emb, device=dev))
+    _build.reset_launch_counts()  # after the factory's dimension probe
+    dispatches0 = emb.dispatches
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    thread = server.run_server(host="127.0.0.1", port=port, threaded=True, with_cache=False)
+    client = VectorStoreClient(host="127.0.0.1", port=port, timeout=60)
+    try:
+        stats = None
+        while time.perf_counter() - t0 < 300:
+            try:
+                stats = client.get_vectorstore_statistics()
+                if stats.get("file_count") == len(texts):
+                    break
+            except Exception:  # noqa: BLE001 — the server is still starting
+                pass
+            time.sleep(0.1)
+        ready_s = time.perf_counter() - t0
+        if not stats or stats.get("file_count") != len(texts):
+            raise AssertionError(f"the vector store did not index {len(texts)} chunks: {stats}")
+        rng = np.random.default_rng(2)
+        queries = [texts[j] for j in rng.choice(len(texts), n_queries, replace=False)]
+        client.query(queries[0], k=k)  # warm-up
+        lat, answers = [], []
+        for q in queries:
+            t1 = time.perf_counter()
+            answers.append(client.query(q, k=k))
+            lat.append((time.perf_counter() - t1) * 1e3)
+    finally:
+        run_mod.stop_current_run()
+        thread.join(timeout=60)
+        G.clear()
+    launches = _build.LAUNCHES.get(KERNEL, 0)
+    dispatches = emb.dispatches - dispatches0
+
+    # the same embeddings in a slab built directly on the same device; each
+    # query alone, as the REST path embeds it
+    direct = VectorSlabIndex(dimensions=emb.config.embed_dim, reserved_space=len(texts), device=dev)
+    cap = emb._plane.buckets.max_rows
+    for s in range(0, len(texts), cap):
+        for j, v in enumerate(emb.encode_many(texts[s:s + cap])):
+            direct.add(s + j, v)
+    mismatches, near_ties, self_top1 = [], 0, 0
+    for q, ans in zip(queries, answers):
+        got_q = sorted((float(a["dist"]), a["text"]) for a in ans)
+        want_q = sorted((dist, texts[key]) for key, dist in direct.search(emb.encode_many([q])[0], k))
+        self_top1 += bool(got_q) and got_q[0][1] == q
+        if len(got_q) != len(want_q):
+            mismatches.append((q, got_q, want_q))
+            continue
+        for (gd, gt), (wd, wt) in zip(got_q, want_q):
+            if abs(gd - wd) > INGEST_SCORE_ATOL:
+                mismatches.append((q, got_q, want_q))
+                break
+            near_ties += gt != wt
+
+    # the encoder reranker on the card against the same weights on the CPU
+    pairs = [(a["text"], q) for q, ans in zip(queries[:8], answers[:8]) for a in ans]
+    rr_launches0 = _build.LAUNCHES.get(KERNEL, 0)
+    card_scores = [EncoderReranker(embedder=emb).__wrapped__(doc, q) for doc, q in pairs]
+    rr_launches = _build.LAUNCHES.get(KERNEL, 0) - rr_launches0
+    cpu_emb = TorchEmbedder(emb.config, device="cpu")
+    cpu_scores = [EncoderReranker(embedder=cpu_emb).__wrapped__(doc, q) for doc, q in pairs]
+    rr_err = float(np.max(np.abs(np.asarray(card_scores) - np.asarray(cpu_scores))))
+    row = dict(
+        phase="vector_store", chunks=len(texts), embedder=dataclasses.asdict(emb.config) | {"dtype": str(emb.config.dtype)},
+        ready_s=ready_s, queries=n_queries, k=k, rest_p50_ms=statistics.median(lat),
+        rest_max_ms=max(lat), attention_launches=launches, encoder_dispatches=dispatches,
+        self_top1=self_top1, score_atol=INGEST_SCORE_ATOL, near_ties=near_ties, mismatches=len(mismatches),
+        first_mismatch=str(mismatches[0])[:600] if mismatches else None,
+        rerank_pairs=len(pairs), rerank_max_abs_err_vs_cpu=rr_err, rerank_atol=RERANK_ATOL,
+        rerank_attention_launches=rr_launches,
+    )
+    emit(row)
+    if mismatches or self_top1 != n_queries or rr_err > RERANK_ATOL:
+        raise AssertionError(f"the vector store disagrees with the direct build: {row}")
+    if on_card and (launches <= 0 or launches != emb.config.n_layers * dispatches or rr_launches <= 0):
+        raise AssertionError(
+            f"the vector store did not embed through the attention kernel: {launches} launches for "
+            f"{dispatches} encoder dispatches x {emb.config.n_layers} layers"
+        )
+    return dict(row, launches=launches + rr_launches)
+
+
 # ------------------------------------------------------------ phase 3
 
 
@@ -1584,17 +1895,32 @@ def main() -> int:
             workdir=Path(tmp),
         )
 
+    # the vector-store server over the texts phase's chunks (its launch
+    # count read across the phase alone)
+    t0 = time.perf_counter()
+    store = run_vector_store("cuda", EMBEDDER_DEFAULT, result["text_chunks"], n_queries=VS_QUERIES, k=VS_K)
+    emit(dict(phase="vector_store_seconds", seconds=time.perf_counter() - t0))
+
     # the approximate tier runs no hand-written kernel (the IVF-PQ search
     # and the reranker are plain PyTorch, as the JAX package leaves them to
     # XLA): its launch counts are read across it all the same
     _build.reset_launch_counts()
     vectors = result.pop("vectors")
+    n_text = vectors.shape[0] - N_DOCS
     ann_vectors = np.concatenate([vectors[:ANN_INDEX_DOCS], vectors[N_DOCS:]])
+    tiered_vectors = np.concatenate([vectors[:TIERED_ROWS - n_text], vectors[N_DOCS:]])
     del vectors
     run_ann("cuda", ann_rows=ANN_ROWS, vectors=ann_vectors, query_vecs=result["query_vecs"],
             query_keys=[key - N_DOCS + ANN_INDEX_DOCS for key in result["query_keys"]],
             slab_p50_ms=result["knn"]["search_batch_p50_ms"],
             churn_waves=CHURN_WAVES, churn_wave=CHURN_WAVE, reps=30)
+    del ann_vectors
+    t0 = time.perf_counter()
+    run_ann_tiered("cuda", vectors=tiered_vectors, query_vecs=result["query_vecs"],
+                   query_keys=[key - N_DOCS + TIERED_ROWS - n_text for key in result["query_keys"]],
+                   churn_waves=TIERED_CHURN_WAVES, churn_wave=CHURN_WAVE, reps=30)
+    emit(dict(phase="ann_tiered_seconds", seconds=time.perf_counter() - t0))
+    del tiered_vectors
     emit(dict(phase="ann_launches", kernel_launches=dict(_build.LAUNCHES)))
 
     # the generation path runs no hand-written kernel (its attention is
@@ -1611,7 +1937,7 @@ def main() -> int:
         name="fused_qkv_attention", route="cuda",
         source="pathway_tpu_torch/csrc/attention.cu",
         replaces="pathway_tpu/ops/attention.py:38",
-        launches=result["launches"] + engine["launches"],
+        launches=result["launches"] + engine["launches"] + store["launches"],
         max_abs_err=max(r["max_abs_err"] for r in rows),
         ms=main_shape["ms"], plain_ms=main_shape["plain_ms"],
         bound_ms=main_shape["bound_ms"], bound_by=main_shape["bound_by"],

@@ -6,14 +6,14 @@ dataflow engine (Tables + expressions DSL, the incremental engine,
 connectors, temporal windows, indexes, the LLM/RAG xpack) as a renamed
 copy of the JAX package's, and its own numeric plane in PyTorch: the hash
 tokenizer, the flagship encoder with its fused attention kernel
-``csrc/attention.cu``, the KNN slab index, the IVF-PQ tier, the causal LM
-with continuous batching, and the UDFs that feed them (``TorchEmbedder``,
-``TorchLMChat``). Entry points run on the CUDA card unless the caller
-passes ``device="cpu"``.
+``csrc/attention.cu``, the KNN slab index, the IVF-PQ tier with its
+RAM/disk list tiers, the causal LM with continuous batching, and the UDFs
+that feed them (``TorchEmbedder``, ``TorchLMChat``). Entry points run on
+the CUDA card unless the caller passes ``device="cpu"``.
 
 Import convention, as in the reference: `import pathway_tpu_torch as pw`.
-``pw.graphs``, ``pw.ml``, ``pw.stateful``, ``pw.statistical``, ``pw.viz``
-and the serving gateway wait for a later slice (ROADMAP.md).
+``pw.graphs``, ``pw.ml``, ``pw.stateful``, ``pw.statistical`` and
+``pw.viz`` wait for a later slice (ROADMAP.md).
 """
 
 from __future__ import annotations

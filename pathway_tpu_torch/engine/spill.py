@@ -253,15 +253,24 @@ class SpillStore:
             return 0
         run = self._write_run(recs)
         with self._gen_lock:
+            # the run's seq and its place in `runs` are taken in one
+            # critical section: a compaction that cut its snapshot while
+            # this file was being written swaps its merged run in BEFORE
+            # this one, under a lower seq (see compact_once)
+            self.seq += 1
+            run.seq = self.seq
             self.runs.append(run)
         self._publish()
         self._maybe_compact_async()
         return len(recs)
 
     def _write_run(self, recs: list[tuple[int, bytes, bytes]]) -> _Run:
+        """Write one sorted run file and its probe summaries. The file is
+        named from a fresh draw of the counter, so no two files collide;
+        the caller gives the run its seq when it enters `runs`."""
         with self._gen_lock:
             self.seq += 1
-            seq = self.seq
+            name_no = self.seq
         out = bytearray(_codec.MAGIC)
         index_h: list[int] = []
         index_off: list[int] = []
@@ -272,7 +281,7 @@ class SpillStore:
             out += _codec.frame(
                 _codec.encode_value((h.to_bytes(8, "big"), kb, payload))
             )
-        name = f"run-{seq:08d}.seg"
+        name = f"run-{name_no:08d}.seg"
         path = os.path.join(self.dir, name)
         _fsync_write(path, bytes(out))
         run = _Run()
@@ -287,7 +296,7 @@ class SpillStore:
             np.asarray([r[0] for r in recs], np.uint64), run.m_bits, run.k
         )
         run.dead = set()
-        run.seq = seq
+        run.seq = -1  # set where the run enters `runs`
         run.dir = None
         run.shared = False
         run._index = (index_h, index_off, len(out))
@@ -299,40 +308,7 @@ class SpillStore:
         """Promote: probe the ladder newest-run-first; on a hit, mark the
         key dead in its run and return the payload (the caller re-inserts
         it into the tail — exclusive residency)."""
-        if not self.runs:
-            return None
-        h = key_hash(kb)
-        m = _metrics()
-        with self._gen_lock:
-            runs = tuple(self.runs)
-        for run in reversed(runs):
-            if kb in run.dead:
-                continue
-            if h < run.hmin or h > run.hmax:
-                if m:
-                    m.counter(
-                        "pathway_spill_probe_tier", {"tier": "fence"},
-                        help="spill probe outcomes by ladder tier",
-                    )
-                continue
-            if not _dp.bloom_check(run.bloom, run.m_bits, run.k, h):
-                if m:
-                    m.counter("pathway_spill_probe_tier", {"tier": "bloom"})
-                continue
-            payload = self._lookup(run, h, kb)
-            if payload is None:
-                if m:
-                    m.counter("pathway_spill_probe_tier", {"tier": "run_false"})
-                continue
-            with self._gen_lock:
-                run.dead.add(kb)
-            self.promotions += 1
-            if m:
-                m.counter("pathway_spill_probe_tier", {"tier": "run_hit"})
-            return payload
-        if m:
-            m.counter("pathway_spill_probe_tier", {"tier": "miss"})
-        return None
+        return self._probe(kb, promote=True)
 
     def peek(self, kb: bytes) -> bytes | None:
         """Read without promoting: the same fence -> bloom -> one
@@ -341,34 +317,63 @@ class SpillStore:
         whose read buffer is NOT a tier (the tiered ANN index probes
         cold lists through here — the decoded block is transient, so
         marking the run record dead would orphan the only copy)."""
+        return self._probe(kb, promote=False)
+
+    def _probe(self, kb: bytes, promote: bool) -> bytes | None:
+        """The ladder over a snapshot of the run list. A compaction may
+        swap the list while a probe walks it: a run it retired can lose
+        its file (scratch roots unlink at once), and a promotion marked
+        dead in it would not reach the merged run that now holds the key.
+        So a probe that finds its run retired starts again on the current
+        list, and a promotion marks the key dead only while its run is
+        still in the list, under the same lock as the swap."""
         if not self.runs:
             return None
         h = key_hash(kb)
         m = _metrics()
-        with self._gen_lock:
-            runs = tuple(self.runs)
-        for run in reversed(runs):
-            if kb in run.dead:
-                continue
-            if h < run.hmin or h > run.hmax:
+        while True:
+            with self._gen_lock:
+                runs = tuple(self.runs)
+            retired = False
+            for run in reversed(runs):
+                if kb in run.dead:
+                    continue
+                if h < run.hmin or h > run.hmax:
+                    if m:
+                        m.counter(
+                            "pathway_spill_probe_tier", {"tier": "fence"},
+                            help="spill probe outcomes by ladder tier",
+                        )
+                    continue
+                if not _dp.bloom_check(run.bloom, run.m_bits, run.k, h):
+                    if m:
+                        m.counter("pathway_spill_probe_tier", {"tier": "bloom"})
+                    continue
+                try:
+                    payload = self._lookup(run, h, kb)
+                except FileNotFoundError:
+                    with self._gen_lock:
+                        retired = not any(r is run for r in self.runs)
+                    if not retired:
+                        raise
+                    break
+                if payload is None:
+                    if m:
+                        m.counter("pathway_spill_probe_tier", {"tier": "run_false"})
+                    continue
+                if promote:
+                    with self._gen_lock:
+                        retired = not any(r is run for r in self.runs)
+                        if not retired:
+                            run.dead.add(kb)
+                    if retired:
+                        break
+                    self.promotions += 1
                 if m:
-                    m.counter(
-                        "pathway_spill_probe_tier", {"tier": "fence"},
-                        help="spill probe outcomes by ladder tier",
-                    )
-                continue
-            if not _dp.bloom_check(run.bloom, run.m_bits, run.k, h):
-                if m:
-                    m.counter("pathway_spill_probe_tier", {"tier": "bloom"})
-                continue
-            payload = self._lookup(run, h, kb)
-            if payload is None:
-                if m:
-                    m.counter("pathway_spill_probe_tier", {"tier": "run_false"})
-                continue
-            if m:
-                m.counter("pathway_spill_probe_tier", {"tier": "run_hit"})
-            return payload
+                    m.counter("pathway_spill_probe_tier", {"tier": "run_hit"})
+                return payload
+            if not retired:
+                break
         if m:
             m.counter("pathway_spill_probe_tier", {"tier": "miss"})
         return None
@@ -506,6 +511,10 @@ class SpillStore:
                     if not r.shared and id(r) not in snap_ids
                 ]
                 if new_run is not None:
+                    # the merged run takes the newest snapshot run's seq:
+                    # every run sealed after the snapshot was cut entered
+                    # `runs` later, under a higher seq, and stays after it
+                    new_run.seq = max(r.seq for r in snap)
                     for run, d0 in zip(snap, dead0):
                         # replayed mid-merge promotions: those keys left
                         # for the tail after the snapshot was cut
@@ -815,6 +824,9 @@ def merge_manifests(manifests: list[dict], label: str | None = None) -> dict:
     max_orig_seq = 0
     for man in manifests:
         verify_manifest(man)
+        # a merged run's file is named from a later draw of the counter
+        # than its seq, so the floor takes the counter itself too
+        max_orig_seq = max(max_orig_seq, int(man.get("seq", 0)))
         mdir = str(man.get("dir", ""))
         for rm in man["runs"]:
             max_orig_seq = max(max_orig_seq, int(rm.get("seq", 0)))

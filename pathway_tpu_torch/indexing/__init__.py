@@ -2,9 +2,9 @@
 maintained incrementally.
 
 Counterpart of ``pathway_tpu/indexing/__init__.py``: the IVF-PQ index
-(`ann.py`, over `pathway_tpu_torch/ops/ivf.py`) and the reranked two-stage
-wrapper, beside the port's stdlib index layer, which this package
-re-exports.
+(`ann.py`, over `pathway_tpu_torch/ops/ivf.py`) with its hot/warm/cold
+list tiers (`tiers.py`) and the reranked two-stage wrapper, beside the
+port's stdlib index layer, which this package re-exports.
 
 Kill switch: ``PATHWAY_ANN=0`` forces every ANN-configured call site back
 to the exact slab search; ``PATHWAY_ANN=1`` also flips opt-in call sites
@@ -19,10 +19,26 @@ from pathway_tpu_torch.stdlib.indexing import *  # noqa: F401,F403
 from pathway_tpu_torch.stdlib.indexing import __all__ as _stdlib_all
 
 from pathway_tpu_torch.indexing.ann import IvfPqIndex
+from pathway_tpu_torch.indexing.tiers import (  # noqa: F401
+    TIER_COLD,
+    TIER_HOT,
+    TIER_NAMES,
+    TIER_WARM,
+    TierState,
+    tiered_enabled,
+    verify_tier_state,
+)
 
 __all__ = [
     "IvfPqIndex",
     "ann_enabled",
+    "tiered_enabled",
+    "TierState",
+    "TIER_HOT",
+    "TIER_WARM",
+    "TIER_COLD",
+    "TIER_NAMES",
+    "verify_tier_state",
     *_stdlib_all,
 ]
 

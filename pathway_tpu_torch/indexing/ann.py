@@ -1,7 +1,8 @@
 """IvfPqIndex: the incremental IVF-PQ index, resident on the card.
 
-Counterpart of ``pathway_tpu/indexing/ann.py`` (the all-resident index;
-its RAM/disk tiers and its mesh-sharded search wait for later slices).
+Counterpart of ``pathway_tpu/indexing/ann.py`` (the all-resident index
+and its RAM/disk tiers; the mesh-sharded search waits for the
+multi-device slice).
 `VectorSlabIndex` answers every query by scanning the whole slab; this
 subclass keeps the same host bookkeeping (slots, keys, tombstone mask,
 (score, key) re-rank) and maintains an IVF-PQ routing structure
@@ -30,15 +31,28 @@ card a failed search raises: the JAX package's 3-strike degradation to
 numpy is not ported, and ``device=False`` is the only road to the numpy
 mirror. Below `train_min` rows the index IS the exact slab search.
 
+**Tiers** (`tiered`/`hot_lists`/`ram_lists`, over `indexing/tiers.py` and
+`engine/spill.py`): each routing list's code block is *hot* (host RAM and
+the card's hot sub-cube), *warm* (host RAM) or *cold* (sealed into a
+spill run on disk, its RAM rows zeroed). A search whose probed lists are
+all hot runs `_ivf_pq_search_fn` on the card over the hot sub-cube; one
+that reaches a warm or cold list runs the numpy search over the union of
+probed lists, cold blocks read through `SpillStore.peek`. The placement
+decides the route, as in the JAX package; a failed hot dispatch raises.
+Rebalancing (`rebalance_tiers_now`, or a daemon every `tier_interval`
+seconds) ranks lists by decayed probe counts; demotion seals before it
+zeroes, an append into a cold list promotes it first, and a checkpoint
+carries the run manifest and the RAM-resident blocks only.
+
 `counters` and `stats()` are what callers read; with the observability
 plane armed the index also publishes its gauges (``pathway_index_*``) to
-the metrics registry, as the JAX package does (its tier gauges wait with
-the tiers).
+the metrics registry, as the JAX package does, tier gauges included.
 """
 
 from __future__ import annotations
 
 import atexit
+import copy
 import itertools
 import logging
 import os
@@ -50,7 +64,9 @@ from typing import Any
 import numpy as np
 import torch
 
+from pathway_tpu_torch.engine import spill as _spill
 from pathway_tpu_torch.engine.device_plane import get_device_plane
+from pathway_tpu_torch.indexing import tiers as _tiers
 from pathway_tpu_torch.ops import ivf as _ivf
 from pathway_tpu_torch.stdlib.indexing.host_indexes import VectorSlabIndex
 
@@ -76,14 +92,36 @@ def _drain_retrain_threads() -> None:
             t.join()
 
 
-def _tiers_requested(tiered, hot_lists, ram_lists) -> bool:
-    # PATHWAY_ANN_TIERED as in the JAX package: unset keeps the
-    # constructor's wish, 0 vetoes, anything else opts in
-    want = tiered if tiered is not None else (hot_lists is not None or ram_lists is not None)
-    v = os.environ.get("PATHWAY_ANN_TIERED")
-    if v is None:
-        return bool(want)
-    return v.strip().lower() not in ("0", "false", "")
+# Indexes with a live tier-rebalance daemon, stopped and joined at exit
+# with the same discipline (a rebalance is host numpy and file writes).
+_LIVE_TIER_DAEMONS: "weakref.WeakSet[IvfPqIndex]" = weakref.WeakSet()
+
+
+@atexit.register
+def _drain_tier_daemons() -> None:
+    for idx in list(_LIVE_TIER_DAEMONS):
+        if idx._tier_stop is not None:
+            idx._tier_stop.set()
+    for idx in list(_LIVE_TIER_DAEMONS):
+        t = idx._tier_thread
+        if t is not None and t.is_alive():
+            t.join()
+
+
+def _tier_loop(ref: "weakref.ref[IvfPqIndex]", stop: threading.Event, interval: float) -> None:
+    # a weak reference: the loop is perpetual, and a strong one from its
+    # own thread would keep the index alive forever
+    while not stop.wait(interval):
+        idx = ref()
+        if idx is None:
+            return
+        try:
+            idx.rebalance_tiers_now()
+        except Exception:
+            # a background thread has no caller to raise to: the
+            # placement stays where it was, and the failure is logged
+            _log.exception("IvfPqIndex %s: tier rebalance failed", idx.name)
+        del idx
 
 
 def _write_cells(cube, valid, slotmap, li, pi, codes, vbits, sids):
@@ -119,6 +157,7 @@ class _Generation:
         self.fill = np.zeros(L, np.int64)  # next append pos per list
         self.cell_of: dict[int, tuple[int, int]] = {}  # slot -> (l, pos)
         self.n_dead = 0
+        self.dead_cold = 0  # dead cells pinned in cold lists (uncompactable)
         self.spills = 0
         self.trained_rows = trained_rows
         self.version = next(_GEN_SEQ)
@@ -169,9 +208,11 @@ class IvfPqIndex(VectorSlabIndex):
     `search_batch` call, or rely on the per-index default
     (`ops.ivf.auto_nprobe`). `device` is as for `VectorSlabIndex`: the
     card by default, a name or ``torch.device``, or False for the numpy
-    mirror. `tiered`/`hot_lists`/`ram_lists` (the RAM/disk tiers) and
-    `sharded` (the mesh search) raise NotImplementedError until their
-    slices land.
+    mirror. `tiered`/`hot_lists`/`ram_lists` place the routing lists in
+    the hot/warm/cold tiers (module doc; ``PATHWAY_ANN_TIERED=0`` vetoes,
+    ``=1`` opts in with auto budgets); `background_tiering` runs the
+    rebalance every `tier_interval` seconds. `sharded` (the mesh search)
+    raises NotImplementedError until the multi-device slice lands.
     """
 
     def __init__(
@@ -194,12 +235,9 @@ class IvfPqIndex(VectorSlabIndex):
         tiered: bool | None = None,
         hot_lists: int | None = None,
         ram_lists: int | None = None,
+        background_tiering: bool = True,
+        tier_interval: float = 5.0,
     ):
-        if _tiers_requested(tiered, hot_lists, ram_lists):
-            raise NotImplementedError(
-                "the tiered IVF-PQ index (RAM/disk tiers over engine/spill.py) is "
-                "not ported yet; it is next in ROADMAP's queue of modules"
-            )
         if sharded if sharded is not None else os.environ.get("PATHWAY_ANN_SHARDED") == "1":
             raise NotImplementedError(
                 "the mesh-sharded IVF-PQ search is not ported yet; it comes with "
@@ -234,6 +272,21 @@ class IvfPqIndex(VectorSlabIndex):
         self._ann_full: torch.Tensor | None = None  # [padded_slots, d] f32
         self._ann_full_slots = 0
         self._ann_dirty_slots: set[int] = set()
+        self._mutations = 0  # keys the hot sub-cube mirror
+        # tier placement: constructor budgets opt in, PATHWAY_ANN_TIERED=1
+        # opts in with auto budgets, =0 always vetoes (read here, once)
+        self.hot_lists = hot_lists
+        self.ram_lists = ram_lists
+        self.background_tiering = background_tiering
+        self.tier_interval = tier_interval
+        self._tiered = _tiers.tiered_enabled(
+            default=tiered if tiered is not None else (hot_lists is not None or ram_lists is not None)
+        )
+        self._tiers: _tiers.TierState | None = None
+        self._tier_thread: threading.Thread | None = None
+        self._tier_stop: threading.Event | None = None
+        self._tier_dev: dict[str, Any] | None = None  # the hot sub-cube mirror
+        self._tier_dev_key = None
         self.counters = {
             "retrains": 0,
             "compactions": 0,
@@ -248,6 +301,11 @@ class IvfPqIndex(VectorSlabIndex):
             "row_updates": 0,
             "cube_rebuilds": 0,
             "row_rebuilds": 0,
+            # tiered searches by route: the hot sub-cube on the device,
+            # or the numpy search over warm/cold lists on the host
+            "tier_device_searches": 0,
+            "tier_host_searches": 0,
+            "hot_mirror_rebuilds": 0,
         }
         self.last_recall: float | None = None
         self._metrics_dirty = True
@@ -258,6 +316,29 @@ class IvfPqIndex(VectorSlabIndex):
         # under the generation lock: a background retrain may be mid-swap
         with self._gen_lock:
             st = super().__getstate__()
+            gen = self._gen
+            ts = self._tiers
+            if ts is not None and gen is not None and ts.version == gen.version:
+                # a tiered checkpoint is the run manifest plus the
+                # RAM-resident code blocks: cold lists restore as zeros
+                # and stay reachable through the (verified) manifest
+                resident = np.flatnonzero(ts.tier != _tiers.TIER_COLD)
+                st["_tier_ckpt"] = {
+                    "manifest": ts.store.manifest(),
+                    "tier": np.asarray(ts.tier).copy(),
+                    "accesses": ts.accesses.copy(),
+                    "version": ts.version,
+                    "hot_budget": ts.hot_budget,
+                    "ram_budget": ts.ram_budget,
+                    "promotions": ts.promotions,
+                    "demotions": ts.demotions,
+                    "resident": resident.astype(np.int64),
+                    "blocks": gen.cube[resident].copy(),
+                    "shape": gen.cube.shape,
+                }
+                g2 = copy.copy(gen)
+                g2.cube = None  # rebuilt from _tier_ckpt on restore
+                st["_gen"] = g2
         st["_gen_lock"] = None
         st["_retrain_mutex"] = None
         st["_retrain_thread"] = None
@@ -268,13 +349,38 @@ class IvfPqIndex(VectorSlabIndex):
         st["_ann_full"] = None
         st["_ann_full_slots"] = 0
         st["_ann_dirty_slots"] = set()
+        st["_tiers"] = None
+        st["_tier_thread"] = None
+        st["_tier_stop"] = None
+        st["_tier_dev"] = None
+        st["_tier_dev_key"] = None
         return st
 
     def __setstate__(self, st):
+        ckpt = st.pop("_tier_ckpt", None)
         self.__dict__.update(st)
         self._metrics_dirty = True
         self._gen_lock = threading.RLock()
         self._retrain_mutex = threading.Lock()
+        if ckpt is not None:
+            # attach_store re-proves the manifest (PlanVerificationError on
+            # tampering) and checks every run file's bytes (RuntimeError on
+            # damage) before the index serves a probe
+            gen = self._gen
+            L, cap, m = ckpt["shape"]
+            cube = np.zeros((L, cap, m), np.uint8)
+            cube[ckpt["resident"]] = ckpt["blocks"]
+            gen.cube = cube
+            store = _spill.attach_store(ckpt["manifest"])
+            ts = _tiers.TierState(L, ckpt["version"], ckpt["hot_budget"], ckpt["ram_budget"], store)
+            ts.tier = np.asarray(ckpt["tier"], np.int8)
+            ts.accesses = np.asarray(ckpt["accesses"], np.float64)
+            ts.promotions = int(ckpt["promotions"])
+            ts.demotions = int(ckpt["demotions"])
+            ts.store.tail_keys = ts.resident_list_keys
+            self._tiers = ts
+            if self._tiered and self.background_tiering:
+                self._start_tier_daemon()
 
     # ----------------------------------------------------------- mutation
 
@@ -336,6 +442,15 @@ class IvfPqIndex(VectorSlabIndex):
             gen.grow_cap()
             self._ann_dev = None  # shape changed: full device rebuild
             self._ann_dev_version = -1
+            self._tier_dev = None
+            self._tier_dev_key = None
+        ts = self._tiers
+        if ts is not None and ts.version == gen.version and ts.tier[lst] == _tiers.TIER_COLD:
+            # no lost inserts across tiers: codes append into the RAM
+            # cube, so a cold target list is promoted first (its run
+            # record dies) and the row lands in a resident list
+            self._promote_list(gen, ts, lst)
+            ts.tier[lst] = _tiers.TIER_WARM
         pos = int(gen.fill[lst])
         gen.cube[lst, pos] = code
         gen.valid[lst, pos] = True
@@ -357,8 +472,13 @@ class IvfPqIndex(VectorSlabIndex):
 
     def _after_mutation(self) -> None:
         self._metrics_dirty = True
+        self._mutations += 1  # invalidates the hot sub-cube mirror
         gen = self._gen
-        if gen is not None and gen.tombstone_frac() > self.compact_frac:
+        if (
+            gen is not None
+            and gen.tombstone_frac() > self.compact_frac
+            and gen.n_dead > gen.dead_cold  # something is reclaimable
+        ):
             self._compact(gen)
         self._maybe_retrain()
 
@@ -368,13 +488,32 @@ class IvfPqIndex(VectorSlabIndex):
         """Re-pack every list dropping tombstoned cells (device cube
         rebuilt on next search). O(live cells) host work, amortized by
         the compact_frac threshold."""
+        ts = self._tiers
+        tiered = ts is not None and ts.version == gen.version
         new_cube = np.zeros_like(gen.cube)
         new_valid = np.zeros_like(gen.valid)
         new_slots = np.full_like(gen.slots, -1)
         new_fill = np.zeros_like(gen.fill)
         cell_of: dict[int, tuple[int, int]] = {}
+        dead_cold = 0
         for lst in range(gen.n_lists):
             fl = int(gen.fill[lst])
+            if tiered and ts.tier[lst] == _tiers.TIER_COLD:
+                # a cold list's codes live in an immutable sealed run and
+                # its RAM rows are zeros: re-packing would break the
+                # code-to-slot alignment, so its cells keep their places
+                # and its tombstones wait for promotion or the next
+                # retrain (counted in dead_cold, so they do not trigger
+                # a compaction on every mutation)
+                new_cube[lst] = gen.cube[lst]
+                new_valid[lst, :fl] = gen.valid[lst, :fl]
+                new_slots[lst, :fl] = gen.slots[lst, :fl]
+                new_fill[lst] = fl
+                live = np.flatnonzero(gen.valid[lst, :fl])
+                dead_cold += fl - live.size
+                for pos in live:
+                    cell_of[int(gen.slots[lst, pos])] = (lst, int(pos))
+                continue
             live = np.flatnonzero(gen.valid[lst, :fl])
             k = live.size
             new_cube[lst, :k] = gen.cube[lst, live]
@@ -384,9 +523,12 @@ class IvfPqIndex(VectorSlabIndex):
             for pos, slot in enumerate(gen.slots[lst, live]):
                 cell_of[int(slot)] = (lst, pos)
         gen.cube, gen.valid, gen.slots = new_cube, new_valid, new_slots
-        gen.fill, gen.cell_of, gen.n_dead = new_fill, cell_of, 0
+        gen.fill, gen.cell_of, gen.n_dead = new_fill, cell_of, dead_cold
+        gen.dead_cold = dead_cold
         self._ann_dev = None  # cell positions moved wholesale: rebuild
         self._ann_dev_version = -1
+        self._tier_dev = None
+        self._tier_dev_key = None
         self._ann_dirty_cells.clear()
         self.counters["compactions"] += 1
         self._publish_metrics()
@@ -518,12 +660,140 @@ class IvfPqIndex(VectorSlabIndex):
             self._dirty_slots = None
             self.counters["retrains"] += 1
             self.counters["retrain_seconds"] += time.monotonic() - t0
+            # a fresh generation gets a fresh placement: run keys are
+            # generation-scoped, so the old store's runs are garbage
+            self._init_tiers(gen)
         self._publish_metrics()
 
     def wait_retrain(self, timeout: float = 60.0) -> None:
         t = self._retrain_thread
         if t is not None:
             t.join(timeout)
+
+    # ---------------------------------------------------------------- tiers
+
+    def _init_tiers(self, gen: _Generation) -> None:
+        """(Re)build the tier placement for a fresh generation, under the
+        generation lock at every swap; a no-op unless tiering is on. The
+        new generation is packed from the slab in RAM, so every list
+        starts hot or warm and the next rebalance demotes the tail."""
+        if not self._tiered:
+            return
+        if self._tiers is not None:
+            self._tiers.store.close()
+        hot, ram = self.hot_lists, self.ram_lists
+        if hot is None and ram is None:
+            hot, ram = _tiers.auto_budgets(gen.n_lists)
+        elif hot is None:
+            hot = max(1, int(ram) // 2)
+        elif ram is None:
+            ram = gen.n_lists  # a hot budget alone: no cold tier
+        store = _spill.store_for(f"ann-tiers-{self.name}")
+        ts = _tiers.TierState(gen.n_lists, gen.version, hot, ram, store)
+        ts.store.tail_keys = ts.resident_list_keys
+        self._tiers = ts
+        self._tier_dev = None
+        self._tier_dev_key = None
+        if self.background_tiering:
+            self._start_tier_daemon()
+
+    def _start_tier_daemon(self) -> None:
+        if self._tier_thread is not None and self._tier_thread.is_alive():
+            return
+        self._tier_stop = threading.Event()
+        t = threading.Thread(
+            target=_tier_loop,
+            args=(weakref.ref(self), self._tier_stop, self.tier_interval),
+            name=f"pw-ann-tier-{self.name}",
+            daemon=True,
+        )
+        self._tier_thread = t
+        _LIVE_TIER_DAEMONS.add(self)
+        t.start()
+
+    def stop_tiering(self) -> None:
+        """Stop the rebalance daemon (the placement stays where it is)."""
+        if self._tier_stop is not None:
+            self._tier_stop.set()
+        t = self._tier_thread
+        if t is not None and t.is_alive():
+            t.join()
+
+    def rebalance_tiers_now(self) -> dict[str, int] | None:
+        """One promotion/demotion pass: decay the access counts, rank the
+        lists, fit the hot/ram budgets and migrate, all under the
+        generation lock (atomic against probes, appends and retrain
+        swaps). The daemon calls it every `tier_interval` seconds; with
+        ``background_tiering=False`` the caller does."""
+        with self._gen_lock:
+            gen = self._gen
+            ts = self._tiers
+            if gen is None or ts is None or ts.version != gen.version:
+                return None
+            ts.decay()
+            to_hot, to_warm, to_cold = ts.plan(np.asarray(gen.fill))
+            for lst in to_hot:
+                if ts.tier[lst] == _tiers.TIER_COLD:
+                    self._promote_list(gen, ts, lst)
+                ts.tier[lst] = _tiers.TIER_HOT
+            for lst in to_warm:
+                if ts.tier[lst] == _tiers.TIER_COLD:
+                    self._promote_list(gen, ts, lst)
+                ts.tier[lst] = _tiers.TIER_WARM
+            if to_cold:
+                # one sealed run for the wave of demotions; the RAM rows
+                # zero only after the fsync'd seal, so a crash between the
+                # two leaves the codes readable
+                ts.store.seal(
+                    [
+                        (_tiers.list_key(ts.version, lst), _tiers.pack_codes(gen.cube[lst]))
+                        for lst in to_cold
+                    ]
+                )
+                for lst in to_cold:
+                    gen.cube[lst] = 0
+                    ts.tier[lst] = _tiers.TIER_COLD
+                ts.demotions += len(to_cold)
+            self._tier_dev = None
+            self._tier_dev_key = None
+            self._metrics_dirty = True
+            return {"to_hot": len(to_hot), "to_warm": len(to_warm), "to_cold": len(to_cold)}
+
+    def _promote_list(self, gen: _Generation, ts: _tiers.TierState, lst: int) -> None:
+        """Cold -> RAM: take() the sealed block (its run record dies:
+        exclusive residency) and unpack it into the cube. The caller
+        flips the tier flag."""
+        payload = ts.store.take(_tiers.list_key(ts.version, int(lst)))
+        if payload is None:
+            raise RuntimeError(
+                f"ANN index {self.name}: cold list {int(lst)} has no live run "
+                "record; the one-tier invariant is broken"
+            )
+        gen.cube[lst] = _tiers.unpack_codes(payload, gen.cap, gen.cube.shape[2])
+        ts.promotions += 1
+
+    def _count_probe_tiers(self, ts: _tiers.TierState, union: np.ndarray, route: str) -> None:
+        self.counters[f"tier_{route}_searches"] += 1
+        from pathway_tpu_torch.internals import observability as _obs
+
+        plane = _obs.PLANE
+        if plane is None:
+            return
+        t = ts.tier[union]
+        for ti, tname in enumerate(_tiers.TIER_NAMES):
+            n = int((t == ti).sum())
+            if n:
+                plane.metrics.counter(
+                    "pathway_index_tier_probe_tier",
+                    {"index": self.name, "tier": tname},
+                    inc=n,
+                    help="probed routing lists by resident tier",
+                )
+        plane.metrics.counter(
+            "pathway_index_tier_searches",
+            {"index": self.name, "route": route},
+            help="tiered searches by route (device: every probed list hot)",
+        )
 
     # -------------------------------------------------------------- search
 
@@ -557,6 +827,9 @@ class IvfPqIndex(VectorSlabIndex):
         return out
 
     def _ann_topk(self, qmat: np.ndarray, k: int, gen: _Generation, nprobe: int):
+        ts = self._tiers
+        if ts is not None and ts.version == gen.version:
+            return self._ann_topk_tiered(qmat, k, gen, ts, nprobe)
         if self.device is None:
             return self._ann_topk_host(qmat, k, gen, nprobe)
         return self._ann_topk_device(qmat, k, gen, nprobe)
@@ -620,6 +893,144 @@ class IvfPqIndex(VectorSlabIndex):
             ),
         )
         return self._collect(slots_out[:n_q].cpu().numpy(), dists[:n_q].cpu().numpy())
+
+    def _ann_topk_tiered(self, qmat, k, gen: _Generation, ts: _tiers.TierState, nprobe: int):
+        """Search across tiers. The host scores the queries against the
+        whole centroid set ([B, L], small) and takes the union of every
+        query's top-nprobe lists over the batch: each query's top-nprobe
+        within the union is its global top-nprobe, so searching the
+        union's sub-layout probes what the all-resident index probes.
+        When every probed list is hot the search runs on the card over
+        the hot sub-cube (pad lists masked by `n_live`); otherwise cold
+        blocks stream in through the spill ladder (`SpillStore.peek`:
+        fence, bloom, one windowed read) and the numpy search scans the
+        union."""
+        with self._gen_lock:
+            q = np.asarray(qmat, np.float32)
+            if q.ndim == 1:
+                q = q[None, :]
+            metric = self.metric
+            qn = q / np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-12) if metric == "cos" else q
+            C = np.asarray(gen.centroids, np.float32)
+            if metric == "l2sq":
+                csim = -((qn * qn).sum(1, keepdims=True) - 2.0 * qn @ C.T + (C * C).sum(1)[None, :])
+            else:
+                csim = qn @ C.T
+            P = min(nprobe, gen.n_lists)
+            probed = np.argpartition(-csim, P - 1, axis=1)[:, :P]
+            union = np.unique(probed)
+            ts.record_access(union)
+            kk = min(k, len(self.slot_of))
+            if kk <= 0:
+                return [(np.empty(0, np.int64), np.empty(0, np.float32)) for _ in range(q.shape[0])]
+            cand = self._candidates(k, gen)
+            if self.device is not None and bool(np.all(ts.tier[union] == _tiers.TIER_HOT)):
+                self._count_probe_tiers(ts, union, "device")
+                return self._ann_dispatch_tier_device(q, kk, gen, ts, P, cand)
+            self._count_probe_tiers(ts, union, "host")
+            m = gen.cube.shape[2]
+            codes = np.empty((union.size, gen.cap, m), np.uint8)
+            for i, lst in enumerate(union):
+                lst = int(lst)
+                if ts.tier[lst] == _tiers.TIER_COLD and gen.fill[lst] > 0:
+                    payload = ts.store.peek(_tiers.list_key(ts.version, lst))
+                    if payload is None:
+                        raise RuntimeError(
+                            f"ANN index {self.name}: cold list {lst} missing from "
+                            "every run; the one-tier invariant is broken"
+                        )
+                    codes[i] = _tiers.unpack_codes(payload, gen.cap, m)
+                else:
+                    codes[i] = gen.cube[lst]
+            sub = _ivf.sub_arrays(gen.as_arrays(self.vectors[: self.n_slots]), union, codes=codes)
+            slots_out, dists = _ivf.ivf_pq_search_host(q, sub, kk, nprobe=P, candidates=cand, metric=metric)
+        return self._collect(slots_out, dists)
+
+    def _ann_dispatch_tier_device(self, q, kk, gen: _Generation, ts, P: int, cand: int):
+        """The hot route: `_ivf_pq_search_fn` on the card over the hot
+        sub-cube, through the plane's ``ann_ivf_search_hot`` program. Slots
+        are global row ids, so the f32 rescore rows are the same mirror
+        as the all-resident search's. A failure raises."""
+        plane = get_device_plane()
+        self._refresh_ann_rows(plane)
+        dev = self._refresh_tier_device(gen, ts, plane)
+        n_live, n_full = dev["n_live"], self._ann_full_slots
+        if n_full < self.n_slots:
+            raise RuntimeError(
+                f"ANN index {self.name}: {n_full} rescore rows on the device "
+                f"for {self.n_slots} slots"
+            )
+        n_q = q.shape[0]
+        if n_q > plane.buckets.max_rows:
+            qpad, qbucket = q, n_q
+        else:
+            (qpad,), qbucket = plane.pad_rows([q], n_q)
+        Hp = int(dev["cube"].shape[0])
+        P = min(P, n_live)
+        prog = plane.program("ann_ivf_search_hot", _ivf._ivf_pq_search_fn)
+        slots_out, dists = prog(
+            torch.from_numpy(np.ascontiguousarray(qpad)).to(self.device),
+            dev["centroids"],
+            dev["cube"],
+            dev["valid"],
+            dev["slots"],
+            dev["codebooks"],
+            self._ann_full,
+            k=kk,
+            nprobe=P,
+            candidates=cand,
+            metric=self.metric,
+            n_live=n_live,
+            bucket=(Hp, gen.cap, gen.cube.shape[2], n_full, qbucket, kk, P, cand, self.dim, n_live),
+        )
+        return self._collect(slots_out[:n_q].cpu().numpy(), dists[:n_q].cpu().numpy())
+
+    def _refresh_tier_device(self, gen: _Generation, ts, plane) -> dict[str, Any]:
+        """The device mirror of the hot lists only: centroids, cube, valid
+        and slots gathered into a sub-layout padded to a power of two,
+        [Hp, cap, m] instead of [L, cap, m]. Cached per (generation,
+        mutation count, slot bucket); a mutation or a rebalance drops it,
+        so the rebuild lands on the first hot search after a write."""
+        key = (gen.version, self._mutations, self._padded_slots())
+        if self._tier_dev is not None and self._tier_dev_key == key:
+            return self._tier_dev
+        hot = np.flatnonzero(ts.tier == _tiers.TIER_HOT)
+        n_live = int(hot.size)
+        if n_live == 0:
+            raise RuntimeError(f"ANN index {self.name}: no hot lists to mirror")
+        Hp = plane.buckets.cap_bucket(n_live, lo=8)
+        cap, m = gen.cap, gen.cube.shape[2]
+        cents = np.zeros((Hp, gen.centroids.shape[1]), np.float32)
+        cents[:n_live] = gen.centroids[hot]
+        cube = np.zeros((Hp, cap, m), np.uint8)
+        cube[:n_live] = gen.cube[hot]
+        valid = np.zeros((Hp, cap), bool)
+        valid[:n_live] = gen.valid[hot]
+        slotm = np.full((Hp, cap), -1, np.int32)
+        slotm[:n_live] = gen.slots[hot]
+
+        def put(a: np.ndarray) -> torch.Tensor:
+            return torch.from_numpy(a).to(self.device, copy=True)
+
+        self._tier_dev = {
+            "centroids": put(cents),
+            "codebooks": put(gen.codebooks),
+            "cube": put(cube),
+            "valid": put(valid),
+            "slots": put(slotm),
+            "n_live": n_live,
+        }
+        self._tier_dev_key = key
+        self.counters["hot_mirror_rebuilds"] += 1
+        return self._tier_dev
+
+    def tier_device_bytes(self) -> int:
+        """Device bytes of the hot sub-cube mirror (0 before the first
+        hot search)."""
+        dev = self._tier_dev
+        if dev is None:
+            return 0
+        return sum(t.numel() * t.element_size() for n, t in dev.items() if n != "n_live")
 
     @staticmethod
     def _collect(slots_out: np.ndarray, dists: np.ndarray):
@@ -804,6 +1215,24 @@ class IvfPqIndex(VectorSlabIndex):
             "pathway_index_compactions", self.counters["compactions"], labels,
             help="tombstone compactions since start",
         )
+        ts = self._tiers
+        if ts is not None and gen is not None and ts.version == gen.version:
+            live = gen.valid.sum(axis=1)
+            for ti, tname in enumerate(_tiers.TIER_NAMES):
+                m.gauge(
+                    "pathway_index_tier_rows",
+                    int(live[ts.tier == ti].sum()),
+                    {**labels, "tier": tname},
+                    help="live rows resident in each index tier",
+                )
+            m.gauge(
+                "pathway_index_tier_promotions", ts.promotions, labels,
+                help="cold->RAM list promotions in the current generation",
+            )
+            m.gauge(
+                "pathway_index_tier_demotions", ts.demotions, labels,
+                help="RAM->cold list demotions in the current generation",
+            )
         if recall_k is not None and self.last_recall is not None:
             m.gauge(
                 "pathway_index_recall_at_k",
@@ -825,4 +1254,20 @@ class IvfPqIndex(VectorSlabIndex):
                 "trained": gen is not None,
                 "recall_at_k": self.last_recall,
                 **self.counters,
+            } | self._tier_stats(gen)
+
+    def _tier_stats(self, gen: _Generation | None) -> dict[str, Any]:
+        ts = self._tiers
+        if ts is None or gen is None or ts.version != gen.version:
+            return {}
+        return {
+            "tiers": {
+                "lists_per_tier": {
+                    tname: int((ts.tier == ti).sum()) for ti, tname in enumerate(_tiers.TIER_NAMES)
+                },
+                "promotions": ts.promotions,
+                "demotions": ts.demotions,
+                "hot_budget": ts.hot_budget,
+                "ram_budget": ts.ram_budget,
             }
+        }

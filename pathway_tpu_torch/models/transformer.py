@@ -7,7 +7,9 @@ projection is ``x @ W``), the same forward and the same rounding points.
 Every projection multiplies in ``cfg.dtype`` with f32 sums and rounds
 once, as the JAX package's einsums with ``preferred_element_type=float32``
 do. The encoder's attention is ``ops.attention.fused_qkv_attention``: the
-CUDA kernel on the card, the plain version on the CPU. The decoder's
+CUDA kernel on the card, the plain version on the CPU; a config with
+``fused_attention=False`` runs ``reference_attention`` on any device, as
+the JAX package's does off the TPU. The decoder's
 causal and cached attention is plain PyTorch (:func:`_attend`), as the
 JAX package leaves it to XLA.
 
@@ -30,7 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from pathway_tpu_torch.engine.device_plane import resolve_device
-from pathway_tpu_torch.ops.attention import fused_qkv_attention
+from pathway_tpu_torch.ops.attention import fused_qkv_attention, reference_attention
 from pathway_tpu_torch.ops.distances import normalize
 
 Params = dict[str, Any]
@@ -48,6 +50,14 @@ class TransformerConfig:
     pool: str = "mean"  # encoder pooling: mean | cls | last
     dtype: torch.dtype = torch.bfloat16
     embed_dim: int | None = None  # projection head dim (None = d_model)
+    # The encoder's attention: True launches the fused kernel
+    # (csrc/attention.cu) on the card, which takes bf16, head_dim 32 or 64
+    # and s <= 128 and raises outside them; False runs the plain
+    # `reference_attention` on any device and at any of those.
+    fused_attention: bool = True
+    # Sequence parallelism over a mesh axis (ring attention) comes with
+    # the multi-device slice; any value but None raises.
+    seq_axis: str | None = None
 
     @property
     def head_dim(self) -> int:
@@ -58,6 +68,11 @@ class TransformerConfig:
             raise ValueError(f"pool must be mean|cls|last, got {self.pool!r}")
         if self.d_model % self.n_heads != 0:
             raise ValueError("d_model must be divisible by n_heads")
+        if self.seq_axis is not None:
+            raise NotImplementedError(
+                "seq_axis (ring attention over a mesh axis) is not ported yet; it "
+                "comes with the multi-device slice (ROADMAP A9)"
+            )
 
 
 def embedder_config(**kw) -> TransformerConfig:
@@ -198,7 +213,8 @@ def _attention(
         ctx = _attend(q, k, v, _build_mask(token_mask, causal=True), cfg)
     else:
         qkv = torch.matmul(x, block["qkv"].to(cfg.dtype))
-        ctx = fused_qkv_attention(qkv, token_mask, cfg.n_heads)
+        attend = fused_qkv_attention if cfg.fused_attention else reference_attention
+        ctx = attend(qkv, token_mask, cfg.n_heads)
     return torch.matmul(ctx, block["o"].to(cfg.dtype))
 
 

@@ -28,6 +28,8 @@ from pathway_tpu_torch.ops import _build
 KERNEL = "fused_qkv_attention"
 MAX_SEQ = 128  # csrc/attention.cu kMaxSeq
 HEAD_DIMS = (32, 64)  # the kernel's instantiations
+# what an encoder outside the kernel's envelope sets instead
+_PLAIN_ROUTE = "; set fused_attention=False in the TransformerConfig to run the plain attention"
 
 _lib: ctypes.CDLL | None = None
 
@@ -70,15 +72,15 @@ def fused_qkv_attention(
         raise ValueError(f"d_model {d} is not divisible by n_heads {n_heads}")
     dh = d // n_heads
     if qkv.dtype != torch.bfloat16:
-        raise TypeError(f"the attention kernel takes bf16 qkv, got {qkv.dtype}")
+        raise TypeError(f"the attention kernel takes bf16 qkv, got {qkv.dtype}{_PLAIN_ROUTE}")
     if not qkv.is_contiguous():
         raise ValueError("the attention kernel takes a contiguous qkv")
     if qkv.data_ptr() % 16 != 0:
         raise ValueError("the attention kernel needs a 16-byte aligned qkv")
     if dh not in HEAD_DIMS:
-        raise ValueError(f"the attention kernel takes head_dim in {HEAD_DIMS}, got {dh}")
+        raise ValueError(f"the attention kernel takes head_dim in {HEAD_DIMS}, got {dh}{_PLAIN_ROUTE}")
     if not 1 <= s <= MAX_SEQ:
-        raise ValueError(f"the attention kernel takes 1 <= s <= {MAX_SEQ}, got {s}")
+        raise ValueError(f"the attention kernel takes 1 <= s <= {MAX_SEQ}, got {s}{_PLAIN_ROUTE}")
     if b * n_heads >= 2**31:
         raise ValueError(f"batch {b} x {n_heads} heads exceeds the kernel's grid")
     if tuple(token_mask.shape) != (b, s) or token_mask.device != qkv.device:

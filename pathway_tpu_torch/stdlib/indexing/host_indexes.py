@@ -76,9 +76,10 @@ class VectorSlabIndex(HostIndex):
 
     `device` is where the mirror lives: True (the default) means the
     CUDA card, a device name or ``torch.device`` names one, and False
-    keeps no mirror and scans the host slab. `approx` is accepted as
-    False only: the JAX package's ``approx_max_k`` has no torch
-    counterpart, and the exact ``torch.topk`` serves both.
+    keeps no mirror and scans the host slab. `approx` is the JAX
+    package's switch to ``approx_max_k``, which has no torch counterpart:
+    the flag is kept and the exact ``torch.topk`` serves it, so its recall
+    is at least the reference's.
     """
 
     def __init__(
@@ -89,13 +90,9 @@ class VectorSlabIndex(HostIndex):
         approx: bool = False,
         device: bool | str | torch.device = True,
     ):
-        if approx:
-            raise NotImplementedError(
-                "approx=True (approx_max_k) has no torch counterpart; the exact "
-                "top-k serves this index"
-            )
         self.dim = dimensions
         self.metric = "cos" if metric == "cosine" else metric
+        self.approx = approx
         self.device = (
             None if device is False else resolve_device(None if device is True else device)
         )

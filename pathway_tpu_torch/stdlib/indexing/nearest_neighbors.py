@@ -10,8 +10,8 @@ Counterpart of ``pathway_tpu/stdlib/indexing/nearest_neighbors.py``
 `torch.topk`: the JAX package's `UsearchKnn` selects `lax.approx_max_k`,
 which has no torch counterpart, and there is no HNSW graph. `IvfPqKnn`
 runs the port's incremental IVF-PQ index (`indexing/ann.py`), optionally
-behind the batched reranker; its RAM/disk tiers wait (``tiered=True``
-raises). `LshKnn` is numpy. The vector indexes live on the CUDA card
+with its lists placed in RAM/disk tiers (``tiered=True``, `hot_lists`,
+`ram_lists`) and behind the batched reranker. `LshKnn` is numpy. The vector indexes live on the CUDA card
 unless `device` names another (``device="cpu"`` keeps a CPU mirror,
 ``device=False`` scans the host slab).
 """
@@ -95,9 +95,10 @@ class BruteForceKnn(_EmbeddingKnn):
 @dataclass(frozen=True)
 class UsearchKnn(_EmbeddingKnn):
     """KNN under the reference's USearchKnn name (HNSW,
-    stdlib/indexing/nearest_neighbors.py:65). The port serves it with the
-    exact top-k (`lax.approx_max_k` has no torch counterpart); the HNSW
-    tuning knobs are accepted for API compatibility and ignored."""
+    stdlib/indexing/nearest_neighbors.py:65). Its slab is built with
+    ``approx=True``, as the JAX package's is; the port serves that flag
+    with the exact top-k (`lax.approx_max_k` has no torch counterpart).
+    The HNSW tuning knobs are accepted for API compatibility and ignored."""
 
     dimensions: int | None = None
     reserved_space: int = 1024
@@ -113,7 +114,7 @@ class UsearchKnn(_EmbeddingKnn):
             self.dimensions, self.reserved_space, self.metric, self.device
         )
         return lambda: VectorSlabIndex(
-            dimensions=dims, reserved_space=space, metric=metric, approx=False,
+            dimensions=dims, reserved_space=space, metric=metric, approx=True,
             device=device,
         )
 

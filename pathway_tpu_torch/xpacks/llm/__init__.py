@@ -2,8 +2,8 @@
 DocumentStore, QA pipelines, REST servers.
 
 Counterpart of ``pathway_tpu/xpacks/llm/``. The model paths (the
-embedder and the chat) run on the CUDA card through the port's own
-models. ``rerankers`` and ``vector_store`` wait for a later slice.
+embedder and the chat, the encoder reranker and the vector store's
+default embedder) run on the CUDA card through the port's own models.
 """
 
 from pathway_tpu_torch.xpacks.llm import (
@@ -12,8 +12,10 @@ from pathway_tpu_torch.xpacks.llm import (
     parsers,
     prompts,
     question_answering,
+    rerankers,
     servers,
     splitters,
+    vector_store,
 )
 from pathway_tpu_torch.xpacks.llm.document_store import DocumentStore, SlidesDocumentStore
 from pathway_tpu_torch.xpacks.llm.embedders import TorchEmbedder, bucket_len, pad_left_rows
@@ -25,8 +27,10 @@ __all__ = [
     "parsers",
     "prompts",
     "question_answering",
+    "rerankers",
     "servers",
     "splitters",
+    "vector_store",
     "DocumentStore",
     "SlidesDocumentStore",
     "TorchEmbedder",

@@ -643,23 +643,22 @@ def test_default_device_needs_a_card_and_later_slices_raise(monkeypatch):
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
-    with pytest.raises(NotImplementedError, match="tiered"):
-        IvfPqIndex(dimensions=8, device="cpu", tiered=True)
-    with pytest.raises(NotImplementedError, match="tiered"):
-        IvfPqIndex(dimensions=8, device="cpu", hot_lists=4)
+    # the tiers are ported: budgets and PATHWAY_ANN_TIERED=1 opt in, =0 vetoes
+    assert IvfPqIndex(dimensions=8, device="cpu", tiered=True)._tiered
+    assert IvfPqIndex(dimensions=8, device="cpu", hot_lists=4)._tiered
     with pytest.raises(NotImplementedError, match="sharded"):
         IvfPqIndex(dimensions=8, device="cpu", sharded=True)
     monkeypatch.setenv("PATHWAY_ANN_TIERED", "1")
-    with pytest.raises(NotImplementedError, match="tiered"):
-        IvfPqIndex(dimensions=8, device="cpu")
+    assert IvfPqIndex(dimensions=8, device="cpu")._tiered
     monkeypatch.setenv("PATHWAY_ANN_TIERED", "0")  # vetoes the budgets
-    assert IvfPqIndex(dimensions=8, device="cpu", hot_lists=4).stats()["lists"] == 0
+    vetoed = IvfPqIndex(dimensions=8, device="cpu", hot_lists=4)
+    assert not vetoed._tiered and vetoed.stats()["lists"] == 0
     monkeypatch.delenv("PATHWAY_ANN_TIERED")
     monkeypatch.setenv("PATHWAY_ANN_SHARDED", "1")
     with pytest.raises(NotImplementedError, match="sharded"):
         IvfPqIndex(dimensions=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="approx"):
-        VectorSlabIndex(dimensions=8, device="cpu", approx=True)
+    # approx=True is served by the exact top-k (ROADMAP C2)
+    assert VectorSlabIndex(dimensions=8, device="cpu", approx=True).approx
 
 
 # ------------------------------------------------------ two-stage wrapper

@@ -127,3 +127,68 @@ def test_index_on_the_card_matches_its_numpy_mirror(cuda_device):
     assert all({k for k, _ in r} <= live for r in got)
     _assert_agree([[(k, d) for k, d in r] for r in got], [[(k, d) for k, d in r] for r in host.search_batch(items)], 0.0)
     np.testing.assert_array_equal(card._ann_dev["cube"].cpu().numpy(), card._gen.cube)
+
+
+def _tiered_pair(cuda_device, docs):
+    """A tiered index on the card and its device=False twin over one
+    stream, each rebalanced once (4 hot lists, 10 in RAM, the rest cold)."""
+    kw = dict(dimensions=DIM, background_retrain=False, seed=0, tiered=True, hot_lists=4,
+              ram_lists=10, background_tiering=False)
+    card = IvfPqIndex(device=cuda_device, **kw)
+    host = IvfPqIndex(device=False, **kw)
+    for i, v in enumerate(docs):
+        card.add(i, v)
+        host.add(i, v)
+    card.rebalance_tiers_now()
+    host.rebalance_tiers_now()
+    assert np.array_equal(card._tiers.tier, host._tiers.tier)
+    return card, host
+
+
+def test_tiered_hot_route_launches_on_the_card(cuda_device):
+    """A batch whose probed lists are all hot searches the hot sub-cube on
+    the card (its mirror holds only the hot lists) and agrees with the
+    numpy search of the same placement; a batch that reaches a cold list
+    takes the host route and gives the numpy result exactly."""
+    docs = _clustered(6000, seed=5)
+    card, host = _tiered_pair(cuda_device, docs)
+    hot = np.flatnonzero(card._tiers.tier == 0)
+    items = [(card._gen.centroids[lst].astype(np.float32), 10, None) for lst in hot]
+    got = card.search_batch(items, nprobe=1)
+    assert card.counters["tier_device_searches"] == 1 and card.counters["tier_host_searches"] == 0
+    assert card._tier_dev["cube"].device.type == "cuda" and card._tier_dev["n_live"] == hot.size
+    assert card._tier_dev["cube"].shape[0] < card._gen.n_lists
+    _assert_agree(got, host.search_batch(items, nprobe=1), 0.0)
+    cold = np.flatnonzero(card._tiers.tier == 2)
+    mixed = [(card._gen.centroids[lst].astype(np.float32), 10, None) for lst in cold[:4]]
+    assert card.search_batch(mixed, nprobe=1) == host.search_batch(mixed, nprobe=1)
+    assert card.counters["tier_host_searches"] == 1
+
+
+def test_failed_hot_dispatch_on_the_card_raises(cuda_device, monkeypatch):
+    """A hot dispatch that fails raises every time: no strikes, no quiet
+    move to the host."""
+    from pathway_tpu_torch.engine.device_plane import get_device_plane
+
+    docs = _clustered(6000, seed=6)
+    card, _host = _tiered_pair(cuda_device, docs)
+    plane = get_device_plane()
+    real = plane.program
+
+    def broken(name, fn=None):
+        prog = real(name, fn)
+        if name != "ann_ivf_search_hot":
+            return prog
+
+        def fail(*a, **k):
+            raise RuntimeError("injected hot dispatch failure")
+
+        return fail
+
+    monkeypatch.setattr(plane, "program", broken)
+    hot = np.flatnonzero(card._tiers.tier == 0)
+    items = [(card._gen.centroids[lst].astype(np.float32), 10, None) for lst in hot[:2]]
+    for _ in range(4):
+        with pytest.raises(RuntimeError, match="injected hot dispatch failure"):
+            card.search_batch(items, nprobe=1)
+    assert card.counters["tier_host_searches"] == 0

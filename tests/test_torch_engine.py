@@ -8,29 +8,46 @@ libraries' loader under concurrent first use, the batched-UDF seam on the
 port's device plane, the host-wire exchange hooks and the metrics export.
 """
 
+import fcntl
 import json
 import os
 import shutil
 import subprocess
 import sys
+import tempfile
+import time
 from pathlib import Path
 
 import numpy as np
 import pytest
 
 import pathway_tpu as jpw
+import pathway_tpu.engine.core as jcore
+import pathway_tpu.engine.native as jnative
+import pathway_tpu.engine.native.dataplane as jdataplane
 import pathway_tpu_torch as tpw
+import pathway_tpu_torch.engine.core as tcore
+import pathway_tpu_torch.engine.native as tnative
+import pathway_tpu_torch.engine.native.dataplane as tdataplane
 from pathway_tpu.internals.parse_graph import G as JAX_G
 from pathway_tpu_torch.internals.parse_graph import G as PORT_G
+from tests.test_torch_parity import align_row_ids
 
 REPO = Path(__file__).resolve().parent.parent
 PACKAGES = {"jax": jpw, "port": tpw}
+# each package's two native loaders and the engine module that caches
+# which batch type the data plane gives it
+PLANE_MODULES = {
+    "jax": (jnative, jdataplane, jcore),
+    "port": (tnative, tdataplane, tcore),
+}
 
 
 @pytest.fixture(autouse=True)
 def _clear_graphs():
     JAX_G.clear()
     PORT_G.clear()
+    align_row_ids()
     yield
     JAX_G.clear()
     PORT_G.clear()
@@ -157,10 +174,87 @@ def _run_pipeline(name: str, pkg: str, src: Path, out: Path) -> bytes:
     return out.read_bytes()
 
 
+def _plane_of(pkg: str) -> str:
+    """The plane a package's engine runs on in this process."""
+    native, dataplane, _core = PLANE_MODULES[pkg]
+    zset, dp = native.available(), dataplane.available()
+    if zset and dp:
+        return "native"
+    if not zset and not dp:
+        return "python"
+    return f"mixed (zset {zset}, dataplane {dp})"
+
+
+def _unload_native(pkg: str, monkeypatch) -> None:
+    """Both loaders of `pkg` as a lost first-use build leaves them: tried,
+    no library. PATHWAY_TPU_NATIVE=0 would not do: each loader reads it
+    once per process."""
+    native, dataplane, core = PLANE_MODULES[pkg]
+    for mod in (native, dataplane):
+        monkeypatch.setattr(mod, "_LIB", None)
+        monkeypatch.setattr(mod, "_TRIED", True)
+    monkeypatch.setattr(core, "NativeBatch", None)
+    monkeypatch.setattr(core, "_NB_RESOLVED", True)
+
+
+def _load_native(pkg: str, monkeypatch, private_dir: Path) -> None:
+    """Make sure both loaders of `pkg` hold their library. The JAX
+    package's loader builds with no lock, so under several test workers
+    one of them can find a half-written library (or lose one that another
+    worker unlinked) and settle on "no library" for the whole process.
+    Such a loader is tried again under a file lock shared by the workers,
+    polling until the other worker's build is complete; a library that
+    still does not load is built into a private directory (the test
+    repoints the loader's module state, never the package's files)."""
+    native, dataplane, core = PLANE_MODULES[pkg]
+    monkeypatch.setenv("PATHWAY_TPU_NATIVE", "1")
+    for mod in (native, dataplane):
+        if mod._load() is not None:
+            continue
+        lock = Path(tempfile.gettempdir()) / f"pathway-native-retry-{mod.__name__}.lock"
+        with open(lock, "w") as fh:
+            fcntl.flock(fh, fcntl.LOCK_EX)
+            try:
+                deadline = time.monotonic() + 30
+                while mod._LIB is None and time.monotonic() < deadline:
+                    mod._TRIED = False
+                    if mod._load() is None:
+                        time.sleep(0.5)
+                if mod._LIB is None:
+                    private_dir.mkdir(parents=True, exist_ok=True)
+                    for src in Path(mod.__file__).parent.glob("*.cpp"):
+                        shutil.copy(src, private_dir / src.name)
+                    monkeypatch.setattr(mod, "_HERE", private_dir)
+                    mod._TRIED = False
+                    mod._load()
+            finally:
+                fcntl.flock(fh, fcntl.LOCK_UN)
+        assert mod._LIB is not None, f"{mod.__name__}: the native library does not load"
+    core._NB_RESOLVED = False  # resolve the batch type against the loaded plane
+
+
+@pytest.fixture(params=["native", "python"])
+def engine_plane(request, monkeypatch, tmp_path):
+    """Both packages on the same plane: the compiled native planes, or
+    both loaders set to "no library" (the Python plane). Asserts, before
+    and after the test, the plane each side ran on."""
+    for pkg in PLANE_MODULES:
+        if request.param == "python":
+            _unload_native(pkg, monkeypatch)
+        else:
+            _load_native(pkg, monkeypatch, tmp_path / f"native-{pkg}")
+    for pkg in PLANE_MODULES:
+        assert _plane_of(pkg) == request.param, f"the {pkg} side is on the {_plane_of(pkg)} plane"
+    yield request.param
+    for pkg in PLANE_MODULES:
+        assert _plane_of(pkg) == request.param, f"the {pkg} side ran on the {_plane_of(pkg)} plane"
+
+
 @pytest.mark.parametrize("name", sorted(PIPELINES))
-def test_engine_output_is_byte_identical_to_the_jax_package(name, inputs, tmp_path, monkeypatch):
+def test_engine_output_is_byte_identical_to_the_jax_package(name, engine_plane, inputs, tmp_path, monkeypatch):
     """Output files byte for byte, at the same PATHWAY_THREADS on both
-    sides (morsel emission order depends on it)."""
+    sides (morsel emission order depends on it), with both packages on
+    the same plane: the native planes, then the Python plane."""
     monkeypatch.setenv("PATHWAY_THREADS", "1")
     want = _run_pipeline(name, "jax", inputs, tmp_path / "jax.out")
     got = _run_pipeline(name, "port", inputs, tmp_path / "port.out")

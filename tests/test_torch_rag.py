@@ -38,6 +38,7 @@ from pathway_tpu.models import transformer as jtfm
 from pathway_tpu_torch.internals.parse_graph import G as PORT_G
 from pathway_tpu_torch.models import convert
 from pathway_tpu_torch.models import transformer as ttfm
+from tests.test_torch_parity import align_row_ids
 
 REPO = Path(__file__).resolve().parent.parent
 EMB = dict(vocab_size=512, d_model=32, n_heads=4, n_layers=1, d_ff=64, max_len=32, embed_dim=32)
@@ -49,6 +50,7 @@ DIST_ATOL = 1e-4
 def _clear_graphs():
     JAX_G.clear()
     PORT_G.clear()
+    align_row_ids()
     yield
     JAX_G.clear()
     PORT_G.clear()
