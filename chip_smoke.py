@@ -15,13 +15,18 @@ coalesced), self-retrieval over the 1M-doc slab, exact and int8 search
 timed. The approximate tier follows: bench.py's 1M x 64 ANN corpus built
 into an IVF-PQ index and searched at bench.py's operating point (against
 exact search and the numpy oracle, split by stage against its bound), then
-``IvfPqIndex`` over half a million flagship-width rows (retrain, search,
+``IvfPqIndex`` over a quarter million flagship-width rows (retrain, search,
 churn in waves, the reranked nprobe-1 wrapper), and the same index with
 its lists in RAM/disk tiers over 65,536 of those rows (the hot route on
 the card, cold lists read from disk, churn, the tier contract). Between
 the RAG phases and the approximate tier, ``VectorStoreServer`` serves the
 texts over REST with its default embedder, held to a direct slab search,
-and ``EncoderReranker`` is held to the CPU. Then it generates with bench.py's
+and ``EncoderReranker`` is held to the CPU; then ``python -m
+pathway_tpu_torch spawn -n 1`` and ``-n 2`` run an ingest pipeline over
+131,072 documents, each process embedding its share with the default
+embedder on the card, the two runs held to each other. After the tiers,
+``pw.ml.index.KNNIndex`` answers 256 queries over the tiered rows in one
+run, held to a direct slab search. Then it generates with bench.py's
 Gemma-2B-shaped decoder at full width (vocab 256128, d_model 2048, 8
 heads, 18 layers, d_ff 16384, max_len 1024; random bf16 weights from a
 seed): ``generate_serving`` at batch 32 (decode step against its bound, a
@@ -117,10 +122,10 @@ ANN_ROWS, ANN_DIM, ANN_SEED = 1_000_000, 64, 7
 ANN_BATCH, ANN_K, ANN_NPROBE, ANN_CANDIDATES = 32, 10, 16, 1024
 ANN_FRONTIER = (4, 16, 64)  # bench.py's bench_ann_frontier
 ANN_MIN_RECALL = 0.93  # the JAX package's 1-CPU run recorded 0.941 on these bytes
-# the incremental index runs over half the slab's random-token rows plus
-# all its text rows: its host retrain over all 1,050,705 rows took 193-312 s,
-# the larger part of the script's time
-ANN_INDEX_DOCS = N_DOCS // 2
+# the incremental index runs over a quarter of the slab's random-token rows
+# plus all its text rows: its host retrain took 193-312 s over all 1,050,705
+# rows and 187-267 s over half of them, the larger part of the script's time
+ANN_INDEX_DOCS = N_DOCS // 4
 # churn of the incremental index: waves of removes and fresh adds, a search after each
 CHURN_WAVES, CHURN_WAVE = 16, 256
 # the tiered index: the same rows cut to 65,536 (all text rows, the rest
@@ -901,6 +906,362 @@ def run_host_engine(device, *, wordcount_rows: int, emb_kw: dict, chat_kw: dict,
     eq = run_rag_pipeline(device, emb_kw, chat_kw, chat_f32=True, **rag)
     launches = sum(r["attention_launches"] for r in (pipe, ing, eq))
     return dict(wordcount=wc, rag_pipeline=pipe, rag_ingest=ing, rag_f32_equality=eq, launches=launches)
+
+
+# ------------------------------------------------------------ spawn_embed
+
+
+# The pipeline that `python -m pathway_tpu_torch spawn -n N` runs in each
+# process: documents from jsonlines shards (one source per shard, so the
+# sources split across the processes), chunked with rag_ingest's splitter,
+# embedded by TorchEmbedder where they were read, then two mesh crossings
+# (a groupby over documents, a join back to the chunks). Each process
+# writes its share of the final table and its own counts.
+SPAWN_EMBED_SCRIPT = """
+import json, os, sys, threading, time
+
+CFG = json.load(open(sys.argv[1]))
+sys.path.insert(0, CFG["root"])
+import numpy as np
+import torch
+
+import pathway_tpu_torch as pw
+from pathway_tpu_torch import TorchEmbedder
+from pathway_tpu_torch.models.convert import params_from_numpy
+from pathway_tpu_torch.models.transformer import embedder_config
+from pathway_tpu_torch.ops import _build
+from pathway_tpu_torch.ops.attention import KERNEL
+from pathway_tpu_torch.xpacks.llm.splitters import TokenCountSplitter
+
+PID = int(os.environ.get("PATHWAY_PROCESS_ID", "0"))
+N = int(os.environ.get("PATHWAY_PROCESSES", "1"))
+
+kw = {}
+if CFG.get("embedder"):
+    ekw = dict(CFG["embedder"])
+    dtype = getattr(torch, ekw.pop("dtype", "bfloat16"))
+    kw["config"] = embedder_config(dtype=dtype, **ekw)
+if CFG.get("device"):
+    kw["device"] = CFG["device"]
+if CFG.get("params"):
+    z = np.load(CFG["params"])
+    tree = {k: z[k] for k in z.files if not k.startswith("blocks.")}
+    tree["blocks"] = [
+        {k.split(".")[2]: z[k] for k in z.files if k.startswith(f"blocks.{i}.")}
+        for i in range(kw["config"].n_layers)
+    ]
+    kw["params"] = params_from_numpy(tree, kw["config"], device=kw.get("device"), dtype=kw["config"].dtype)
+emb = TorchEmbedder(**kw)
+embedded_rows = [0]
+lock = threading.Lock()
+flush = emb._batcher.flush_fn
+
+
+def counted_flush(items):
+    with lock:
+        embedded_rows[0] += len(items)
+    return flush(items)
+
+
+emb._batcher.flush_fn = counted_flush
+splitter = TokenCountSplitter(min_tokens=50, max_tokens=250, tokenize_fn=str.split)
+
+
+@pw.udf
+def split(text: str) -> list:
+    return [(i, c) for i, (c, _meta) in enumerate(splitter.chunk(text))]
+
+
+class Doc(pw.Schema):
+    doc: int
+    text: str
+
+
+shards = [
+    pw.io.jsonlines.read(path, schema=Doc, mode="streaming", autocommit_duration_ms=50, _single_pass=True)
+    for path in CFG["shards"]
+]
+docs = shards[0].concat_reindex(*shards[1:]).with_id_from(pw.this.doc)
+parts = docs.select(doc=pw.this.doc, part=split(pw.this.text)).flatten(pw.this.part)
+chunks = parts.select(doc=pw.this.doc, idx=pw.this.part[0], text=pw.this.part[1]).with_id_from(
+    pw.this.doc, pw.this.idx)
+embedded = chunks.select(
+    doc=pw.this.doc, idx=pw.this.idx, text=pw.this.text,
+    chars=pw.apply_with_type(len, int, pw.this.text), vec=emb(pw.this.text),
+)
+per_doc = embedded.groupby(pw.this.doc).reduce(
+    doc=pw.this.doc, n_chunks=pw.reducers.count(), doc_chars=pw.reducers.sum(pw.this.chars))
+out = embedded.join(per_doc, embedded.doc == per_doc.doc).select(
+    doc=embedded.doc, idx=embedded.idx, text=embedded.text, n_chunks=per_doc.n_chunks,
+    doc_chars=per_doc.doc_chars, vec=embedded.vec,
+)
+rows = {}
+retractions = [0]
+
+
+def on_change(key, row, time, is_addition):
+    # every chunk and every document total is final in the wave that
+    # makes it: a retraction would be a fault, counted for the caller
+    if is_addition:
+        rows[key.value] = row
+    else:
+        retractions[0] += 1
+
+
+pw.io.subscribe(out, on_change=on_change)
+_build.reset_launch_counts()
+t0 = time.perf_counter()
+pw.run()
+seconds = time.perf_counter() - t0
+launches = _build.LAUNCHES.get(KERNEL, 0)
+keys = sorted(rows)
+e = emb.config.embed_dim
+np.savez(
+    CFG["out"] + f".{PID}.npz",
+    key_hi=np.array([k >> 64 for k in keys], np.uint64),
+    key_lo=np.array([k & ((1 << 64) - 1) for k in keys], np.uint64),
+    doc=np.array([rows[k]["doc"] for k in keys], np.int64),
+    idx=np.array([rows[k]["idx"] for k in keys], np.int64),
+    n_chunks=np.array([rows[k]["n_chunks"] for k in keys], np.int64),
+    doc_chars=np.array([rows[k]["doc_chars"] for k in keys], np.int64),
+    text=np.array([rows[k]["text"] for k in keys], dtype=str),
+    vec=np.stack([np.asarray(rows[k]["vec"], np.float32) for k in keys]) if keys
+    else np.zeros((0, e), np.float32),
+)
+with open(CFG["out"] + f".{PID}.json", "w") as f:
+    json.dump(dict(
+        process=PID, processes=N, device=str(emb.device), attention_launches=launches,
+        embedded_rows=embedded_rows[0], encoder_dispatches=emb.dispatches, output_rows=len(keys),
+        retractions=retractions[0],
+        run_seconds=seconds, device_idle_share="not measured",
+    ), f)
+"""
+# the embeddings of -n 2 against -n 1: the same chunks embedded in other
+# batches (another row bucket, another row order in a bucket), so a chunk's
+# bf16 embedding may differ by a few bf16 ulps, as in rag_ingest
+SPAWN_EMBED_ATOL = INGEST_SCORE_ATOL
+SPAWN_SHARDS = 4
+
+
+def save_params(tree: dict, path: Path) -> None:
+    """A parameter tree (numpy leaves, the JAX package's layout) as one
+    .npz that the spawned pipeline loads through models/convert.py."""
+    import numpy as np
+
+    flat = {k: np.asarray(v) for k, v in tree.items() if k != "blocks"}
+    for i, blk in enumerate(tree["blocks"]):
+        flat.update({f"blocks.{i}.{k}": np.asarray(v) for k, v in blk.items()})
+    np.savez(path, **flat)
+
+
+def free_port_base(n: int) -> int:
+    """The first of `n * n` consecutive localhost ports free now (the
+    process mesh listens on ports from PATHWAY_FIRST_PORT up)."""
+    import socket
+
+    for _ in range(60):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            base = s.getsockname()[1]
+        try:
+            for i in range(n * n):
+                with socket.socket() as s2:
+                    s2.bind(("127.0.0.1", base + i))
+        except OSError:
+            continue
+        return base
+    raise RuntimeError("no free range of localhost ports for the process mesh")
+
+
+def read_spawn_output(outdir: Path) -> dict:
+    """The processes' shares of one spawned run, merged and sorted by key."""
+    import numpy as np
+
+    parts = [np.load(p) for p in sorted(outdir.glob("out.*.npz"))]
+    merged = {k: np.concatenate([z[k] for z in parts]) for k in parts[0].files}
+    order = np.lexsort((merged["key_lo"], merged["key_hi"]))
+    return {k: v[order] for k, v in merged.items()}
+
+
+def run_spawn_embed(device, emb_kw: dict | None, texts: list[str], *, n_docs: int, shards: int,
+                    processes: tuple[int, ...], workdir: Path, params: Path | None = None,
+                    embed_atol: float = SPAWN_EMBED_ATOL, timeout_s: float = 600.0) -> dict:
+    """rag_ingest's documents through `python -m pathway_tpu_torch spawn
+    -n N` for each N in `processes` (SPAWN_EMBED_SCRIPT in each process;
+    `device` None is the embedder's default, the card). Every run must
+    exit 0 and every process must embed rows (and, on the card, launch the
+    attention kernel); the runs must agree with the first run: keys, chunk
+    counts and texts byte for byte, embeddings within `embed_atol`, and
+    with a direct split of the documents."""
+    import os
+    import signal
+
+    import numpy as np
+
+    from pathway_tpu_torch.xpacks.llm.splitters import TokenCountSplitter
+
+    docs = ingest_corpus(texts, n_docs, seed=0)
+    shard_dir = workdir / "shards"
+    shard_dir.mkdir(parents=True, exist_ok=True)
+    paths = [shard_dir / f"docs-{i}.jsonl" for i in range(shards)]
+    for i, path in enumerate(paths):
+        path.write_text("".join(json.dumps({"doc": j, "text": docs[j]}) + "\n" for j in range(i, n_docs, shards)))
+    script = workdir / "spawn_embed_pipeline.py"
+    script.write_text(SPAWN_EMBED_SCRIPT)
+    on_card = device is None or str(device).startswith("cuda")
+    runs: dict[int, dict] = {}
+    outputs = {}
+    for n in processes:
+        outdir = workdir / f"n{n}"
+        outdir.mkdir()
+        cfg = dict(root=str(ROOT), shards=[str(p) for p in paths], out=str(outdir / "out"),
+                   embedder=emb_kw, device=device, params=None if params is None else str(params))
+        (outdir / "cfg.json").write_text(json.dumps(cfg))
+        cmd = [sys.executable, "-m", "pathway_tpu_torch", "spawn", "-n", str(n),
+               "--first-port", str(free_port_base(n)), "--", str(script), str(outdir / "cfg.json")]
+        env = {**os.environ, "PYTHONPATH": str(ROOT)}
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                text=True, start_new_session=True)
+        try:
+            out, err = proc.communicate(timeout=timeout_s)
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.communicate()
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"spawn -n {n} exited {proc.returncode}:\n{out[-2000:]}\n{err[-4000:]}")
+        stats = [json.loads((outdir / f"out.{p}.json").read_text()) for p in range(n)]
+        run_s = max(st["run_seconds"] for st in stats)
+        runs[n] = dict(processes=stats, wall_seconds=wall, run_seconds=run_s, documents_per_s=n_docs / run_s,
+                       documents_per_wall_s=n_docs / wall)
+        outputs[n] = read_spawn_output(outdir)
+        for st in stats:
+            if st["retractions"]:
+                raise AssertionError(f"process {st['process']} of spawn -n {n} saw retractions: {st}")
+            if st["embedded_rows"] <= 0 or (on_card and st["attention_launches"] <= 0):
+                raise AssertionError(f"process {st['process']} of spawn -n {n} embedded nothing "
+                                     f"on the attention kernel: {st}")
+            if on_card and not st["device"].startswith("cuda"):
+                raise AssertionError(f"process {st['process']} of spawn -n {n} ran on {st['device']}")
+
+    splitter = TokenCountSplitter(min_tokens=50, max_tokens=250, tokenize_fn=str.split)
+    want = sorted((j, i, c) for j, d in enumerate(docs) for i, (c, _m) in enumerate(splitter.chunk(d)))
+    first = outputs[processes[0]]
+    got = sorted(zip(first["doc"].tolist(), first["idx"].tolist(), first["text"].tolist()))
+    per_doc = np.bincount(first["doc"], minlength=n_docs)
+    exact = ("key_hi", "key_lo", "doc", "idx", "n_chunks", "doc_chars", "text")
+    equal, max_err = True, 0.0
+    for n in processes[1:]:
+        other = outputs[n]
+        equal &= all(np.array_equal(first[k], other[k]) for k in exact)
+        if first["vec"].shape == other["vec"].shape:
+            max_err = max(max_err, float(np.abs(first["vec"] - other["vec"]).max(initial=0.0)))
+        else:
+            equal = False
+    row = dict(
+        phase="spawn_embed", documents=n_docs, shards=shards, chunks=len(first["doc"]),
+        splitter="TokenCountSplitter(50, 250)", runs=runs,
+        equal_direct_split=got == want and bool(np.array_equal(per_doc[first["doc"]], first["n_chunks"])),
+        equal_n1_n2=bool(equal), max_abs_err_n1_n2=max_err, embed_atol=embed_atol,
+        attention_launches=sum(st["attention_launches"] for r in runs.values() for st in r["processes"]),
+    )
+    emit(row)
+    if not row["equal_direct_split"] or not equal or max_err > embed_atol:
+        raise AssertionError(f"the spawned runs disagree: {row}")
+    return row
+
+
+# ------------------------------------------------------------ ml_knn
+
+
+ML_KNN_QUERIES, ML_KNN_K = 256, 10
+# the same slab code on the same vectors, searched in another batch: a
+# near-tie is two rows whose scores differ by less than this
+ML_KNN_TIE_ATOL = 1e-4
+
+
+def run_ml_knn(device, vectors, query_rows: list[int], *, k: int) -> dict:
+    """`pw.ml.index.KNNIndex` (its default device, the card) over
+    `vectors`, the `query_rows` of them as queries in one `pw.run()`,
+    held to a direct `VectorSlabIndex.search_batch` over the same vectors
+    on the same device: rows in order, apart from near-ties, which are
+    counted."""
+    import numpy as np
+    import torch
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals.parse_graph import G
+    from pathway_tpu_torch.stdlib.indexing.host_indexes import VectorSlabIndex
+    from pathway_tpu_torch.stdlib.ml.index import KNNIndex
+
+    n, d = vectors.shape
+    G.clear()
+    t0 = time.perf_counter()
+    data = pw.debug.table_from_rows(pw.schema_from_types(row=int, vec=np.ndarray),
+                                    [(i, vectors[i]) for i in range(n)])
+    qs = pw.debug.table_from_rows(pw.schema_from_types(q=int, qvec=np.ndarray),
+                                  [(j, vectors[r]) for j, r in enumerate(query_rows)])
+    kw = {} if device is None else {"device": device}
+    index = KNNIndex(data.vec, data, n_dimensions=d, distance_type="cosine", **kw)
+    res = index.get_nearest_items(qs.qvec, k=k, with_distances=True)
+    joined = res.join(qs, res.id == qs.id).select(q=pw.right.q, rows=pw.left.row, dist=pw.left.dist)
+    results: dict[int, tuple] = {}
+    slabs: list = []
+    search = VectorSlabIndex.search_batch
+
+    def search_batch(self, items, *a, **kw):
+        if all(self is not s for s in slabs):
+            slabs.append(self)
+        return search(self, items, *a, **kw)
+
+    pw.io.subscribe(joined, on_change=lambda key, row, time, is_addition:
+                    results.__setitem__(row["q"], (tuple(row["rows"]), tuple(row["dist"]))) if is_addition else None)
+    VectorSlabIndex.search_batch = search_batch
+    try:
+        t1 = time.perf_counter()
+        pw.run()
+        run_s = time.perf_counter() - t1
+    finally:
+        VectorSlabIndex.search_batch = search
+        G.clear()
+    seconds = time.perf_counter() - t0
+    (slab,) = slabs
+    docs_t, _valid = slab.device_docs()
+    direct = VectorSlabIndex(dimensions=d, reserved_space=n, metric="cos", **kw)
+    for i in range(n):
+        direct.add(i, vectors[i])
+    want = direct.search_batch([(vectors[r], k, None) for r in query_rows])
+    mismatches, near_ties = [], 0
+    for j, w in enumerate(want):
+        got_rows, got_dist = results.get(j, ((), ()))
+        want_rows = [key for key, _s in w]
+        want_dist = [s for _key, s in w]
+        if len(got_rows) != len(want_rows) or any(
+                abs(g - s) > ML_KNN_TIE_ATOL for g, s in zip(got_dist, want_dist)):
+            mismatches.append((j, got_rows, want_rows))
+            continue
+        for pos, (g, wr) in enumerate(zip(got_rows, want_rows)):
+            if g != wr:
+                if abs(got_dist[pos] - want_dist[pos]) <= ML_KNN_TIE_ATOL:
+                    near_ties += 1
+                else:
+                    mismatches.append((j, got_rows, want_rows))
+                    break
+    self_top1 = sum(results.get(j, ((None,),))[0][:1] == (r,) for j, r in enumerate(query_rows))
+    row = dict(
+        phase="ml_knn", rows=n, dim=d, queries=len(query_rows), k=k, answered=len(results),
+        seconds=seconds, run_seconds=run_s, mirror_device=str(docs_t.device),
+        mirror_rows=int(docs_t.shape[0]), tie_atol=ML_KNN_TIE_ATOL, near_ties=near_ties,
+        mismatches=len(mismatches), self_top1=self_top1,
+        first_mismatch=str(mismatches[0])[:600] if mismatches else None,
+    )
+    emit(row)
+    on_card = device is None or str(device).startswith("cuda")
+    if mismatches or len(results) != len(query_rows) or (on_card and docs_t.device.type != "cuda"):
+        raise AssertionError(f"KNNIndex disagrees with the direct slab or left the card: {row}")
+    return row
 
 
 # ------------------------------------------------------------ phase 2b
@@ -1901,6 +2262,15 @@ def main() -> int:
     store = run_vector_store("cuda", EMBEDDER_DEFAULT, result["text_chunks"], n_queries=VS_QUERIES, k=VS_K)
     emit(dict(phase="vector_store_seconds", seconds=time.perf_counter() - t0))
 
+    # the spawned mesh: rag_ingest's documents through `spawn -n 1` and
+    # `-n 2`, each process embedding its share with the default
+    # TorchEmbedder on the card (the children's launches are their own)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        spawn = run_spawn_embed(None, None, load_texts(ROOT), n_docs=INGEST_DOCS, shards=SPAWN_SHARDS,
+                                processes=(1, 2), workdir=Path(tmp))
+    emit(dict(phase="spawn_embed_seconds", seconds=time.perf_counter() - t0))
+
     # the approximate tier runs no hand-written kernel (the IVF-PQ search
     # and the reranker are plain PyTorch, as the JAX package leaves them to
     # XLA): its launch counts are read across it all the same
@@ -1920,6 +2290,10 @@ def main() -> int:
                    query_keys=[key - N_DOCS + TIERED_ROWS - n_text for key in result["query_keys"]],
                    churn_waves=TIERED_CHURN_WAVES, churn_wave=CHURN_WAVE, reps=30)
     emit(dict(phase="ann_tiered_seconds", seconds=time.perf_counter() - t0))
+    # pw.ml's KNNIndex over the same rows, queried by text rows in one run
+    text_rows = range(TIERED_ROWS - n_text, TIERED_ROWS)
+    run_ml_knn(None, tiered_vectors, [text_rows[i * len(text_rows) // ML_KNN_QUERIES]
+                                      for i in range(ML_KNN_QUERIES)], k=ML_KNN_K)
     del tiered_vectors
     emit(dict(phase="ann_launches", kernel_launches=dict(_build.LAUNCHES)))
 
@@ -1937,7 +2311,7 @@ def main() -> int:
         name="fused_qkv_attention", route="cuda",
         source="pathway_tpu_torch/csrc/attention.cu",
         replaces="pathway_tpu/ops/attention.py:38",
-        launches=result["launches"] + engine["launches"] + store["launches"],
+        launches=result["launches"] + engine["launches"] + store["launches"] + spawn["attention_launches"],
         max_abs_err=max(r["max_abs_err"] for r in rows),
         ms=main_shape["ms"], plain_ms=main_shape["plain_ms"],
         bound_ms=main_shape["bound_ms"], bound_by=main_shape["bound_by"],

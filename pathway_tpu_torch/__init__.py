@@ -12,8 +12,11 @@ that feed them (``TorchEmbedder``, ``TorchLMChat``). Entry points run on
 the CUDA card unless the caller passes ``device="cpu"``.
 
 Import convention, as in the reference: `import pathway_tpu_torch as pw`.
-``pw.graphs``, ``pw.ml``, ``pw.stateful``, ``pw.statistical`` and
-``pw.viz`` wait for a later slice (ROADMAP.md).
+The stdlib is the reference's: ``pw.graphs``, ``pw.indexing``, ``pw.ml``,
+``pw.ordered``, ``pw.stateful``, ``pw.statistical``, ``pw.temporal``,
+``pw.utils`` and ``pw.viz``. ``python -m pathway_tpu_torch spawn -n N --
+app.py`` runs a pipeline as N cooperating processes over the TCP mesh,
+with elastic membership and blue/green swaps in ``parallel/``.
 """
 
 from __future__ import annotations
@@ -103,7 +106,7 @@ from pathway_tpu_torch import demo  # noqa: E402
 from pathway_tpu_torch import io  # noqa: E402
 from pathway_tpu_torch import persistence  # noqa: E402
 from pathway_tpu_torch import serving  # noqa: E402
-from pathway_tpu_torch.stdlib import indexing, ordered, temporal, utils  # noqa: E402
+from pathway_tpu_torch.stdlib import graphs, indexing, ml, ordered, stateful, statistical, temporal, utils, viz  # noqa: E402
 from pathway_tpu_torch.internals.sql import sql  # noqa: E402
 from pathway_tpu_torch.internals.yaml_loader import load_yaml  # noqa: E402
 from pathway_tpu_torch.internals.custom_reducers import BaseCustomAccumulator  # noqa: E402

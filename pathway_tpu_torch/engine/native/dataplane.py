@@ -483,11 +483,14 @@ class NativeBatch:
         accepts the older bytes fields too, keeping the wire compatible
         across a supervisor restart mid-upgrade."""
         lib = _load()
-        tok = self.token.copy()
-        n = len(tok)
+        n = len(self.token)
         blob_cap = 1 << 16
         ulen = np.empty(max(n, 1), np.int64)
         while True:
+            # dp_export_tokens rewrites the tokens to local ids as it goes,
+            # also on an attempt whose blob was too small: every attempt
+            # starts from a fresh copy of the batch's own tokens
+            tok = self.token.copy()
             blob = ctypes.create_string_buffer(blob_cap)
             n_u = lib.dp_export_tokens(
                 self.tab._h, n, tok, blob, blob_cap, ulen, len(ulen)

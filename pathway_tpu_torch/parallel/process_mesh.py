@@ -130,6 +130,11 @@ class ProcessMesh:
                     s = socket.create_connection(
                         (self.host, self.first_port + p), timeout=5.0
                     )
+                    # the 5 s bound is the connect's: a send to a live peer
+                    # that drains slowly (a large frame, a busy receiver)
+                    # waits, as a barrier waits for a slow peer; a dead
+                    # peer fails the send with a socket error
+                    s.settimeout(None)
                     s.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
                     s.sendall(_LEN.pack(8) + self.process_id.to_bytes(8, "little"))
                     self._send_socks[p] = s
@@ -155,13 +160,17 @@ class ProcessMesh:
                 target=self._recv_loop, args=(conn,), daemon=True
             ).start()
 
-    def _recv_exact(self, conn: socket.socket, n: int) -> bytes | None:
-        buf = b""
-        while len(buf) < n:
-            chunk = conn.recv(n - len(buf))
-            if not chunk:
+    def _recv_exact(self, conn: socket.socket, n: int) -> bytearray | None:
+        """`n` bytes into one buffer, in time linear in `n` (a frame of
+        embeddings runs to tens of MB)."""
+        buf = bytearray(n)
+        view = memoryview(buf)
+        got = 0
+        while got < n:
+            k = conn.recv_into(view[got:])
+            if not k:
                 return None
-            buf += chunk
+            got += k
         return buf
 
     def _recv_loop(self, conn: socket.socket) -> None:
@@ -227,7 +236,7 @@ class ProcessMesh:
                     self._dead.add(peer)
                     self._cv.notify_all()
 
-    def _decode_frame(self, body: bytes) -> tuple:
+    def _decode_frame(self, body: bytes | bytearray) -> tuple:
         """Inverse of ``_send``'s framing. Out-of-band buffers are handed
         to pickle as memoryviews of the receive block — reconstructed
         numpy arrays alias it (no per-array copy; the block stays alive

@@ -290,24 +290,70 @@ def _batched_double(pw, calls: list, rows: list):
     return double
 
 
-def test_batched_udf_wave_flushes_once_through_the_port_plane():
+WANT_ROWS = [(2 * (i // 10) + 2, 2 * i) for i in range(30)]
+
+
+def _hold_async_loop_until_all_rows_submitted(runtime, monkeypatch, rows: int = 30):
+    """Block `runtime`'s async-apply event loop on an event that is set once
+    the engine has handed it `rows` rows, so every wave's row coroutines
+    are queued on the loop before any of them runs."""
+    import threading
+
+    gate = threading.Event()
+    submitted = [0]
+    submit = runtime._submit_async_batch
+
+    def counting_submit(fn, insertions, graph):
+        fut = submit(fn, insertions, graph)
+        submitted[0] += len(insertions)
+        if submitted[0] >= rows:
+            gate.set()
+        return fut
+
+    monkeypatch.setattr(runtime, "_submit_async_batch", counting_submit)
+    runtime._get_async_loop().call_soon_threadsafe(gate.wait, 60)
+    return gate
+
+
+def test_batched_udf_wave_flushes_once_through_the_port_plane(monkeypatch):
     """A `pw.udf(batched=True)` stage coalesces its rows into one flush on
-    the port's device plane, as on the JAX package's: the debug stream's
-    three waves are all staged when the run starts, so the deferred stage
-    takes them in one batch call, and each row still comes out at its own
-    time."""
+    the port's device plane, as on the JAX package's: with the debug
+    stream's three waves all handed to the event loop before it runs
+    (held on an event here, so the interleaving does not depend on how
+    busy the machine is), the deferred stage takes them in one batch call,
+    and each row still comes out at its own time."""
+    import pathway_tpu.engine.runtime as jruntime
+    import pathway_tpu_torch.engine.runtime as truntime
+    from pathway_tpu.engine.device_plane import WaveCoalescer as JaxCoalescer
     from pathway_tpu_torch.engine.device_plane import WaveCoalescer
 
+    for pw, runtime, cls in ((jpw, jruntime, JaxCoalescer), (tpw, truntime, WaveCoalescer)):
+        gate = _hold_async_loop_until_all_rows_submitted(runtime, monkeypatch)
+        calls: list[int] = []
+        rows: list = []
+        double = _batched_double(pw, calls, rows)
+        assert gate.is_set(), pw.__name__
+        assert calls == [30], pw.__name__
+        assert sorted(rows) == WANT_ROWS, pw.__name__
+        (coalescer,) = double._coalescers.values()
+        assert isinstance(coalescer, cls) and coalescer.flushes == 1, pw.__name__
+
+
+def test_batched_udf_rows_match_the_reference_under_any_interleaving():
+    """With no gate, how the three waves split into flushes depends on
+    timing, on both packages; what holds under any interleaving is that
+    every row goes through one flush exactly once, at its own time, and
+    the rows equal the JAX package's."""
     want_calls: list[int] = []
     want_rows: list = []
     _batched_double(jpw, want_calls, want_rows)
     calls: list[int] = []
     rows: list = []
     double = _batched_double(tpw, calls, rows)
-    assert calls == want_calls == [30]
-    assert sorted(rows) == sorted(want_rows) == [(2 * (i // 10) + 2, 2 * i) for i in range(30)]
+    assert sorted(rows) == sorted(want_rows) == WANT_ROWS
+    assert sum(calls) == sum(want_calls) == 30
     (coalescer,) = double._coalescers.values()
-    assert isinstance(coalescer, WaveCoalescer) and coalescer.flushes == 1
+    assert coalescer.flushes == len(calls)
 
 
 def test_native_planes_load_and_carry_the_engine(inputs, tmp_path):

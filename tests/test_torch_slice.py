@@ -252,7 +252,10 @@ def test_port_source_scan_covers_the_host_engine():
     assert len(rel) >= 150, len(rel)
     for name in ("engine/core.py", "engine/runtime.py", "internals/table.py", "internals/udfs.py",
                  "io/fs.py", "xpacks/llm/document_store.py", "xpacks/llm/question_answering.py",
-                 "stdlib/indexing/nearest_neighbors.py", "parallel/process_mesh.py"):
+                 "stdlib/indexing/nearest_neighbors.py", "parallel/process_mesh.py",
+                 "parallel/membership.py", "parallel/supervisor.py", "parallel/bluegreen.py", "cli.py",
+                 "__main__.py", "stdlib/graphs/__init__.py", "stdlib/ml/index.py", "stdlib/ml/classifiers.py",
+                 "stdlib/stateful/__init__.py", "stdlib/statistical/__init__.py", "stdlib/viz/table_viz.py"):
         assert f"pathway_tpu_torch/{name}" in rel, name
 
 
@@ -281,9 +284,13 @@ def test_importing_the_port_loads_no_jax():
         "pathway_tpu_torch.engine.runtime, pathway_tpu_torch.internals.lowering, "
         "pathway_tpu_torch.internals.metrics, pathway_tpu_torch.internals.verifier, "
         "pathway_tpu_torch.xpacks.llm.servers, pathway_tpu_torch.analysis.lint, "
-        "pathway_tpu_torch.engine.native.dataplane, pathway_tpu_torch.indexing.tiers\n"
+        "pathway_tpu_torch.engine.native.dataplane, pathway_tpu_torch.indexing.tiers, "
+        "pathway_tpu_torch.cli, pathway_tpu_torch.parallel.membership, pathway_tpu_torch.parallel.supervisor, "
+        "pathway_tpu_torch.parallel.bluegreen, pathway_tpu_torch.stdlib.ml.index, "
+        "pathway_tpu_torch.stdlib.viz.plotting\n"
         "import pathway_tpu_torch as pw\n"
-        "assert all(hasattr(pw, n) for n in ('Table', 'run', 'io', 'udf', 'debug', 'UDF'))\n"
+        "assert all(hasattr(pw, n) for n in ('Table', 'run', 'io', 'udf', 'debug', 'UDF', 'graphs', 'ml', "
+        "'stateful', 'statistical', 'viz'))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'pathway_tpu'))\n"
         "assert not bad, bad\n"
     )
