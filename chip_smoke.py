@@ -32,7 +32,18 @@ heads, 18 layers, d_ff 16384, max_len 1024; random bf16 weights from a
 seed): ``generate_serving`` at batch 32 (decode step against its bound, a
 profile by class), continuous batching of 96 requests through
 ``TorchLMChat``, and the slot and wave paths held byte-equal at f32 on
-JaxLMChat's default model. Each phase prints one JSON line; the line
+JaxLMChat's default model. The device mesh runs on 4 shards of the one
+card (``PATHWAY_MESH_DEVICES=cuda:0*4``; one card gives no interconnect,
+so these phases hold each sharded path to its unsharded one and time the
+merges and copies): right after the slice, the sharded exact search over
+its slab and the key-hash exchange of its embeddings (with a ``pw.run()``
+groupby over the device wire against the host wire); inside the
+approximate tier, the list-sharded IVF-PQ search and the sharded
+``IvfPqIndex``; after generation, the tensor-parallel encoder and
+decoder, the sequence-parallel encoder and ring attention at s 8192,
+the training step on the Gemma-2B-shaped decoder (and the chat model at
+f32 on the card against the CPU), ``segment_reduce`` over 16M values and
+the mesh-spanning slot pool. Each phase prints one JSON line; the line
 before the last is the kernel table, the last is the result. Any failure
 exits non-zero. Without a CUDA device, or without the package beside it,
 it exits non-zero too.
@@ -41,9 +52,11 @@ it exits non-zero too.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -153,6 +166,40 @@ CHAT_DEFAULT = dict(
     vocab_size=32768, d_model=256, n_heads=8, n_layers=4, d_ff=1024, max_len=512,
 )
 EQ_PROMPTS, EQ_BATCH = 48, 16
+# the device mesh: MESH_SHARDS shards of the one card (PATHWAY_MESH_DEVICES
+# = cuda:0*4 for the meshes the port builds itself); one card gives no
+# interconnect, so these phases hold the sharded paths to the unsharded
+# ones and time the merges and copies, never a scaling figure
+MESH_SHARDS = 4
+# mesh_knn: the sharded exact search against knn_search on the same f32 slab
+MESH_KNN_ATOL = 1e-5
+# mesh_exchange: the skewed mix sends half of the rows to shard 0; the
+# engine groupby of tests/test_rescale_exchange.py at a deployment's size
+EXCHANGE_SKEW = 0.5
+GROUPBY_ROWS, GROUPBY_GROUPS = 131_072, 64
+# mesh_tp over (data 2, model 2): bf16 activations round at other points
+# than the unsharded forward's (f32 partial sums added across the model
+# shards, then rounded once), so unit-norm embeddings within 2^-6 and the
+# decoder's argmax equal at 95% of positions at least
+TP_MESH = (2, 2)
+TP_ENC_ROWS, TP_LM_ROWS, TP_LM_SEQ = 16_384, 4, 64
+TP_EMBED_ATOL, TP_ARGMAX_MIN = 2.0**-6, 0.95
+# ring_encode: the sequence over MESH_SHARDS shards; ring attention keeps
+# f32 probabilities where the reference attention rounds them to bf16
+# (embeddings within 2^-6), and in f32 it sums 8192 keys in blocks (1e-4)
+RING_ROWS, RING_ATTN = 4096, (4, 8192, 6, 64)
+RING_EMBED_ATOL, RING_ATTN_ATOL = 2.0**-6, 1e-4
+# train_step: the Gemma-2B-shaped LM at f32 parameters, bf16 compute;
+# then JaxLMChat's default model at f32 on the card against the CPU (sums
+# in another order: losses within 1e-5 relative, 99.9% of the parameters
+# within 2e-5, all within 2 * lr * steps)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 4, 256, 5, 3e-4
+TRAIN_CHECK_STEPS, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 3, 4, 128
+TRAIN_LOSS_RTOL, TRAIN_PARAM_ATOL = 1e-5, 2e-5
+# segment_reduce: float sums through the card's atomics, in any order
+SEGMENT_VALUES, SEGMENT_SEGMENTS, SEGMENT_RTOL = 1 << 24, 1 << 20, 1e-5
+# mesh_slots: the slot pool over 2 shards against one pool of as many slots
+SLOTS_SHARDS, SLOTS_PER_SHARD, SLOTS_REQUESTS, SLOTS_NEW = 2, 8, 32, 16
 # bf16 decode logits against a full causal forward over the same tokens:
 # the two round at other points (cached K/V vs recomputed, other matmul
 # shapes) on logits of |l| < 8
@@ -1362,7 +1409,7 @@ def _recall(got, want, k: int) -> float:
 
 
 def run_ann(device, *, ann_rows: int, vectors, query_vecs, query_keys, slab_p50_ms: float,
-            churn_waves: int, churn_wave: int, reps: int) -> dict:
+            churn_waves: int, churn_wave: int, reps: int, mesh_shards: int = 0) -> dict:
     """The port's approximate tier. (a) `ann_build` and `ann_search`:
     bench.py's 1M x 64 ANN corpus built by `build_ivf_pq(seed=0)` and
     searched at its operating point (B 32, k 10, nprobe 16, candidates
@@ -1370,8 +1417,13 @@ def run_ann(device, *, ann_rows: int, vectors, query_vecs, query_keys, slab_p50_
     nprobe 4/16/64 frontier. (b) `ann_index`: `IvfPqIndex` over `vectors`
     (run_slice's rows at the flagship width) with one explicit retrain,
     searched with run_slice's text queries, churned in waves, and wrapped
-    in `RerankedSlabIndex` at nprobe 1. Returns the rows it printed. Runs
-    on the CPU too (at a small size), for a rehearsal."""
+    in `RerankedSlabIndex` at nprobe 1. With `mesh_shards`, `mesh_ivf`
+    holds the list-sharded search over that many shards of `device` to
+    the unsharded one on (a)'s index (recall at least its recall), and
+    `mesh_ivf_index` the trained index of (b), restored with its sharded
+    flag on (no second retrain), to the index's own results. Returns the
+    rows it printed. Runs on the CPU too (at a small size), for a
+    rehearsal."""
     import numpy as np
     import torch
 
@@ -1451,6 +1503,32 @@ def run_ann(device, *, ann_rows: int, vectors, query_vecs, query_keys, slab_p50_
     if (srch["shape"] != [ANN_BATCH, k] or not srch["finite"] or srch["recall_at_10"] < ANN_MIN_RECALL
             or srch["oracle_sets_equal"] < ANN_BATCH - 1 or not srch.get("tf32_on_identical", True)):
         raise AssertionError(f"the IVF-PQ search is wrong: {srch}")
+    if mesh_shards:
+        from pathway_tpu_torch.parallel.mesh import make_mesh
+
+        t_phase = time.perf_counter()
+        t0 = time.perf_counter()
+        sidx = ivf.shard_ivf_pq(host, make_mesh((mesh_shards,), ("data",), [dev] * mesh_shards))
+        place_s = time.perf_counter() - t0
+
+        def sharded_search():
+            return ivf.ivf_pq_search_sharded(qt, sidx, k, nprobe=ANN_NPROBE, candidates=ANN_CANDIDATES)
+
+        s_sh, d_sh = sharded_search()
+        sgot = s_sh.cpu().numpy()
+        mrow = dict(
+            phase="mesh_ivf", shards=mesh_shards, rows=ann_rows, lists=L, padded_lists=int(sidx.codes.shape[0]),
+            place_s=place_s, recall_at_10=_recall(sgot, ei, k), unsharded_recall_at_10=srch["recall_at_10"],
+            sets_equal_to_unsharded=int(sum(set(a) == set(b) for a, b in zip(sgot, got))),
+            queries=ANN_BATCH, p50_ms=timer(sharded_search, reps), unsharded_p50_ms=ann_p50,
+            finite=bool(torch.isfinite(d_sh).all()), shape=list(s_sh.shape),
+        )
+        mrow["seconds"] = time.perf_counter() - t_phase
+        emit(mrow)
+        if (mrow["recall_at_10"] < mrow["unsharded_recall_at_10"] or not mrow["finite"]
+                or mrow["shape"] != [ANN_BATCH, k]):
+            raise AssertionError(f"the list-sharded search lost recall: {mrow}")
+        del sidx, s_sh, d_sh
     del index, host, docs, qt, exact
     if on_card:
         torch.cuda.empty_cache()
@@ -1507,6 +1585,36 @@ def run_ann(device, *, ann_rows: int, vectors, query_vecs, query_keys, slab_p50_
     emit(idx_row)
     if idx_row["self_top1"] != len(items):
         raise AssertionError(f"the IVF-PQ index missed a self-query: {idx_row}")
+    if mesh_shards:
+        # the trained index restored with its sharded flag on: the
+        # checkpoint path, so the lists are not trained a second time
+        t_phase = time.perf_counter()
+        with _mesh_env(f"{dev}*{mesh_shards}"):
+            sharded = IvfPqIndex.__new__(IvfPqIndex)
+            sharded.__setstate__({**ann.__getstate__(), "_shard_search": True, "counters": dict(ann.counters)})
+            t0 = time.perf_counter()
+            res_sh = sharded.search_batch(items)  # places the view
+            first_s = time.perf_counter() - t0
+            sh_p50 = timer(lambda: sharded.search_batch(items), reps)
+        keys_sh = [[key for key, _ in r] for r in res_sh]
+        want = exact_keys(qmat)
+        per_q = [(len(set(a) & set(w)), len(set(b) & set(w))) for a, b, w in zip(keys_sh, keys_got, want)]
+        srow = dict(
+            phase="mesh_ivf_index", shards=mesh_shards, rows=n, queries=len(items),
+            placements=sharded.counters["sharded_placements"], sharded_searches=sharded.counters["sharded_searches"],
+            first_search_s=first_s, search_batch_p50_ms=sh_p50, unsharded_p50_ms=idx_p50,
+            sets_equal=int(sum(set(a) == set(b) for a, b in zip(keys_sh, keys_got))),
+            recall_at_10=_recall(keys_sh, want, k), unsharded_recall_at_10=idx_row["recall_at_10"],
+            queries_below_unsharded=int(sum(a < b for a, b in per_q)),
+            self_top1=int(sum(r[0] == key for r, key in zip(keys_sh, query_keys))),
+            seconds=time.perf_counter() - t_phase,
+        )
+        emit(srow)
+        if srow["queries_below_unsharded"] or srow["self_top1"] != len(items) or srow["placements"] != 1:
+            raise AssertionError(f"the sharded IvfPqIndex lost results of the unsharded one: {srow}")
+        del sharded, res_sh
+        if on_card:
+            torch.cuda.empty_cache()
 
     # -- churn in waves: each removes and adds `churn_wave` rows, then searches
     rng = np.random.default_rng(3)
@@ -2194,6 +2302,556 @@ def run_generate(device, lm_kw: dict, chat_kw: dict, texts: list[str], *, batch:
     return dict(wave=wave, continuous=cbrow, equality=eqrow)
 
 
+# ------------------------------------------------------------ phase 4
+# the device mesh (shards of the one card, through PATHWAY_MESH_DEVICES)
+# and the training step
+
+
+@contextlib.contextmanager
+def _mesh_env(devices: str):
+    """PATHWAY_MESH_DEVICES for the meshes the port builds itself; the
+    previous value comes back after."""
+    old = os.environ.get("PATHWAY_MESH_DEVICES")
+    os.environ["PATHWAY_MESH_DEVICES"] = devices
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("PATHWAY_MESH_DEVICES", None)
+        else:
+            os.environ["PATHWAY_MESH_DEVICES"] = old
+
+
+def _launches() -> int:
+    from pathway_tpu_torch.ops import _build
+    from pathway_tpu_torch.ops.attention import KERNEL
+
+    return _build.LAUNCHES.get(KERNEL, 0)
+
+
+def run_mesh_knn(device, vectors, query_vecs, *, shards: int, k: int, reps: int) -> dict:
+    """`mesh_knn`: `knn_search_sharded` and `make_knn_searcher(mesh=)`
+    over `vectors` (run_slice's slab rows) cut into `shards` row blocks,
+    with run_slice's text queries, against `knn_search` on the same slab:
+    the same indices (a pair that differs must be a tie within
+    MESH_KNN_ATOL) and distances within MESH_KNN_ATOL."""
+    import numpy as np
+    import torch
+
+    from pathway_tpu_torch.ops.topk import knn_search, knn_search_sharded, make_knn_searcher
+    from pathway_tpu_torch.parallel.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    timer = host_ms if on_card else _cpu_ms
+    mesh = make_mesh((shards,), ("data",), [dev] * shards)
+    docs = torch.from_numpy(np.ascontiguousarray(vectors, np.float32)).to(dev)
+    q = torch.from_numpy(np.asarray(query_vecs, np.float32)).to(dev)
+    plain = knn_search(q, docs, k, "cos")
+    sharded = knn_search_sharded(q, docs, k, "cos", mesh)
+    searcher = make_knn_searcher(k, mesh=mesh)
+    via = searcher(q, docs)
+    pi, si, vi = (r.indices.cpu().numpy() for r in (plain, sharded, via))
+    pd, sd = plain.distances.cpu().numpy(), sharded.distances.cpu().numpy()
+    dist_err = float(np.abs(pd - sd).max())
+    row = dict(
+        phase="mesh_knn", shards=shards, rows=int(docs.shape[0]), dim=int(docs.shape[1]),
+        queries=int(q.shape[0]), k=k, indices_equal=int((pi == si).sum()), of=int(pi.size),
+        searcher_equal=int((si == vi).sum()), max_dist_err=dist_err, atol=MESH_KNN_ATOL,
+        knn_search_p50_ms=timer(lambda: knn_search(q, docs, k, "cos"), reps),
+        knn_search_sharded_p50_ms=timer(lambda: knn_search_sharded(q, docs, k, "cos", mesh), reps),
+        searcher_p50_ms=timer(lambda: searcher(q, docs), reps),
+        attention_launches=_launches(),
+    )
+    row["seconds"] = time.perf_counter() - t_phase
+    emit(row)
+    # the distances are sorted on both sides, so a differing index is a
+    # tie exactly when its distance still agrees
+    if dist_err > MESH_KNN_ATOL or row["searcher_equal"] != row["of"]:
+        raise AssertionError(f"the sharded KNN disagrees with knn_search: {row}")
+    del docs
+    if on_card:
+        torch.cuda.empty_cache()
+    return row
+
+
+def _exchange_check(label, key_ids, payload, dests, mesh) -> dict:
+    """One exchange_with_respill, held to the host routing: every row
+    exactly once, at its shard, in src-major arrival order, bit-exact."""
+    import numpy as np
+
+    from pathway_tpu_torch.parallel import exchange as ex
+
+    rounds = []
+    orig = ex.exchange_by_key
+
+    def counted(*args, **kwargs):
+        rounds.append(kwargs.get("donate", False))
+        return orig(*args, **kwargs)
+
+    ex.exchange_by_key = counted
+    try:
+        t0 = time.perf_counter()
+        keys, pays, srcs = ex.exchange_with_respill(key_ids, payload, dests, mesh)
+        seconds = time.perf_counter() - t0
+    finally:
+        ex.exchange_by_key = orig
+    ok = True
+    for d in range(mesh.size):
+        idx = np.flatnonzero(dests == d)
+        ok = ok and np.array_equal(srcs[d], idx) and np.array_equal(keys[d], key_ids[idx])
+        ok = ok and np.array_equal(pays[d].view(np.uint32), payload[idx].view(np.uint32))
+    return dict(
+        case=label, rows=int(len(key_ids)), rounds=len(rounds), single_round=rounds == [True],
+        per_shard=[int((dests == d).sum()) for d in range(mesh.size)], seconds=seconds,
+        payload_gb=payload.nbytes / 1e9, gb_per_s=payload.nbytes / seconds / 1e9, exact=bool(ok),
+    )
+
+
+def run_mesh_exchange(device, vectors, *, shards: int, groupby_rows: int, groupby_groups: int) -> dict:
+    """`mesh_exchange`: (a) `exchange_with_respill` of `vectors` over
+    `shards` shards, destinations from `route128` over seeded 128-bit
+    keys, then a mix sending EXCHANGE_SKEW of the rows to shard 0; (b)
+    `exchange_columns_with_respill` of u64/i64 columns, bit-exact; (c) a
+    `pw.run()` groupby over `groupby_rows` rows with a vector column under
+    PATHWAY_THREADS=4, with PATHWAY_DEVICE_EXCHANGE=1 and =0: equal
+    outputs, and the device run went through the DeviceExchanger. The
+    shards share one card, so GB/s is copies on it plus the host work
+    around them, not an interconnect figure."""
+    import numpy as np
+    import torch
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals.parse_graph import G
+    from pathway_tpu_torch.parallel import device_exchange as dx
+    from pathway_tpu_torch.parallel.exchange import exchange_columns_with_respill, route128
+    from pathway_tpu_torch.parallel.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    mesh = make_mesh((shards,), ("data",), [dev] * shards)
+    rng = np.random.default_rng(11)
+    n = len(vectors)
+    lo = rng.integers(0, 2**64 - 1, n, dtype=np.uint64)
+    hi = rng.integers(0, 2**64 - 1, n, dtype=np.uint64)
+    routed = route128(lo, hi, shards)
+    skewed = np.where(rng.random(n) < EXCHANGE_SKEW, 0, routed).astype(np.int64)
+    ids = np.arange(n, dtype=np.int64)
+    payload = np.ascontiguousarray(vectors, np.float32)
+    cases = [_exchange_check("route128", ids, payload, routed, mesh),
+             _exchange_check(f"{EXCHANGE_SKEW}_to_shard_0", ids, payload, skewed, mesh)]
+    diff = rng.choice([-3, -1, 1, 2], n).astype(np.int64)
+    tok = rng.integers(0, 1 << 40, n).astype(np.uint64)
+    t0 = time.perf_counter()
+    cols, srcs = exchange_columns_with_respill([lo, hi, tok, diff], routed, mesh)
+    col_s = time.perf_counter() - t0
+    col_exact = all(
+        np.array_equal(srcs[d], np.flatnonzero(routed == d))
+        and all(np.array_equal(got, src[routed == d]) for got, src in zip(cols[d], (lo, hi, tok, diff)))
+        for d in range(shards)
+    )
+    del cols, srcs
+
+    # (c) the engine's shuffle of rows with a vector column, device wire
+    # against host wire
+    grng = np.random.default_rng(12)
+    emb = payload[grng.integers(0, n, groupby_rows)]
+    rows = [(f"g{i % groupby_groups}", emb[i]) for i in range(groupby_rows)]
+
+    def groupby_run(mode: str):
+        G.clear()
+        saved = {k: os.environ.get(k) for k in ("PATHWAY_THREADS", "PATHWAY_DEVICE_EXCHANGE")}
+        os.environ.update(PATHWAY_THREADS="4", PATHWAY_DEVICE_EXCHANGE=mode)
+        dx._ENGINE_EXCHANGER = None
+        try:
+            t = pw.Table.from_rows(pw.schema_from_types(g=str, emb=np.ndarray), rows)
+            res = t.groupby(t.g).reduce(
+                t.g, n=pw.reducers.count(),
+                s=pw.reducers.sum(pw.apply_with_type(lambda v: float(v.astype(np.float64).sum()), float, t.emb)),
+            )
+            t0 = time.perf_counter()
+            out = sorted(map(tuple, pw.debug.table_to_pandas(res).values.tolist()))
+            return out, time.perf_counter() - t0, dx._ENGINE_EXCHANGER
+        finally:
+            for key, val in saved.items():
+                if val is None:
+                    os.environ.pop(key, None)
+                else:
+                    os.environ[key] = val
+            G.clear()
+
+    with _mesh_env(f"{dev}*{shards}"):
+        dev_out, dev_s, ex = groupby_run("1")
+        host_out, host_s, _ = groupby_run("0")
+    dx._ENGINE_EXCHANGER = None
+    row = dict(
+        phase="mesh_exchange", shards=shards, dim=int(payload.shape[1]), exchanges=cases,
+        columns=dict(rows=n, columns=4, seconds=col_s, exact=bool(col_exact)),
+        groupby=dict(rows=groupby_rows, groups=groupby_groups, threads=4, device_wire_s=dev_s,
+                     host_wire_s=host_s, equal=dev_out == host_out,
+                     exchanger_invocations=ex.invocations if ex is not None else 0,
+                     rows_exchanged=ex.rows_exchanged if ex is not None else 0),
+        attention_launches=_launches(),
+    )
+    row["seconds"] = time.perf_counter() - t_phase
+    emit(row)
+    if (not all(c["exact"] for c in cases) or not col_exact or not row["groupby"]["equal"]
+            or row["groupby"]["exchanger_invocations"] <= 0 or cases[1]["rounds"] < 2):
+        raise AssertionError(f"the mesh exchange is wrong: {row}")
+    return row
+
+
+def run_mesh_tp(device, enc_kw: dict, lm_kw: dict, *, mesh_shape: tuple, enc_rows: int, enc_seq: int,
+                lm_rows: int, lm_seq: int) -> dict:
+    """`mesh_tp`: `TransformerLM.shard` over a (data, model) mesh of the
+    card: the flagship encoder encoding `enc_rows` x `enc_seq` tokens and
+    the Gemma-2B-shaped decoder's logits for `lm_rows` x `lm_seq`, each
+    against the unsharded fused_attention=False forward of the same bf16
+    weights: embeddings within TP_EMBED_ATOL, the logits' argmax equal at
+    TP_ARGMAX_MIN of the positions at least; the decoder's argmax of both
+    is also read against an f32 forward of the same weights. Also each
+    shard's bytes."""
+    import torch
+
+    from pathway_tpu_torch.models import transformer as tfm
+    from pathway_tpu_torch.parallel.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    n_dev = mesh_shape[0] * mesh_shape[1]
+    timer = host_ms if on_card else _cpu_ms
+    out = dict(phase="mesh_tp", mesh=dict(data=mesh_shape[0], model=mesh_shape[1]))
+    for name, kw, rows, seq in (("encoder", enc_kw, enc_rows, enc_seq), ("decoder", lm_kw, lm_rows, lm_seq)):
+        causal = name == "decoder"
+        make = tfm.lm_config if causal else tfm.embedder_config
+        cfg = make(dtype=torch.bfloat16, fused_attention=False, **kw)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        model = tfm.TransformerLM(cfg, tfm.init_params(gen, cfg, dtype=torch.bfloat16), device=dev)
+        ids = torch.randint(2, cfg.vocab_size, (rows, seq), generator=gen, device=dev)
+        mask = torch.ones((rows, seq), dtype=torch.int32, device=dev)
+        with torch.no_grad():
+            fn = model.logits if causal else model.encode
+            want = fn(ids, mask)
+            plain_ms = timer(lambda: fn(ids, mask), 3)
+            full_bytes = sum(t.numel() * t.element_size() for t in tfm._leaves(model.params))
+            if causal:  # the same weights at f32: how far each bf16 forward is from it
+                p32 = tfm.cast_params(model.params, torch.float32)
+                top32 = tfm.logits(p32, ids, mask, dataclasses.replace(cfg, dtype=torch.float32)).argmax(-1)
+                del p32
+            model.shard(make_mesh(mesh_shape, ("data", "model"), [dev] * n_dev))
+            fn = model.logits if causal else model.encode
+            got = fn(ids, mask)
+            sharded_ms = timer(lambda: fn(ids, mask), 3)
+        part = dict(config=kw, rows=rows, seq=seq, params_bytes=full_bytes, shard_bytes=model.shard_bytes(),
+                    plain_ms=plain_ms, sharded_ms=sharded_ms, fused_attention=model.cfg.fused_attention,
+                    finite=bool(torch.isfinite(got).all()), shape=list(got.shape))
+        if causal:
+            part.update(argmax_agreement=(got.argmax(-1) == want.argmax(-1)).float().mean().item(),
+                        argmax_min=TP_ARGMAX_MIN, max_logit_diff=(got - want).abs().max().item(),
+                        logit_absmax=want.abs().max().item(),
+                        unsharded_vs_f32_argmax=(want.argmax(-1) == top32).float().mean().item(),
+                        sharded_vs_f32_argmax=(got.argmax(-1) == top32).float().mean().item())
+        else:
+            part.update(max_abs_diff=(got - want).abs().max().item(), atol=TP_EMBED_ATOL)
+        out[name] = part
+        del model, want, got
+        if on_card:
+            torch.cuda.empty_cache()
+    out["attention_launches"] = _launches()
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    enc, dec = out["encoder"], out["decoder"]
+    if (not enc["finite"] or not dec["finite"] or enc["max_abs_diff"] > TP_EMBED_ATOL
+            or dec["argmax_agreement"] < TP_ARGMAX_MIN
+            or max(enc["shard_bytes"]) >= enc["params_bytes"] or max(dec["shard_bytes"]) >= dec["params_bytes"]):
+        raise AssertionError(f"the tensor-parallel model disagrees with the unsharded one: {out}")
+    return out
+
+
+def run_ring(device, enc_kw: dict, *, shards: int, rows: int, seq: int, attn: tuple) -> dict:
+    """`ring_encode`: (a) the flagship encoder with `seq_axis` over
+    `shards` shards, `rows` x `seq` tokens of random lengths, against the
+    unsharded reference-attention encode of the same bf16 weights (within
+    RING_EMBED_ATOL); (b) `ring_attention` alone at `attn` = (b, s, h, dh)
+    in f32, a padded tail of keys, against full f32 attention (within
+    RING_ATTN_ATOL)."""
+    import torch
+
+    from pathway_tpu_torch.models import transformer as tfm
+    from pathway_tpu_torch.ops.attention import ring_attention
+    from pathway_tpu_torch.parallel import spmd
+    from pathway_tpu_torch.parallel.mesh import P, make_mesh
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    timer = host_ms if on_card else _cpu_ms
+    mesh = make_mesh((shards,), ("seq",), [dev] * shards)
+    cfg = tfm.embedder_config(dtype=torch.bfloat16, fused_attention=False, **enc_kw)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    params = tfm.init_params(gen, cfg, dtype=torch.bfloat16)
+    ids = torch.randint(2, cfg.vocab_size, (rows, seq), generator=gen, device=dev)
+    lens = torch.randint(seq // 4, seq + 1, (rows,), generator=gen, device=dev)
+    mask = (torch.arange(seq, device=dev)[None, :] < lens[:, None]).to(torch.int32)
+    sp = dataclasses.replace(cfg, seq_axis="seq")
+    ring_encode = spmd.shard_map(
+        lambda p, i, m: tfm.encode(p, i, m, sp), mesh,
+        in_specs=(P(), P(None, "seq"), P(None, "seq")), out_specs=P(),
+    )
+    with torch.no_grad():
+        want = tfm.encode(params, ids, mask, cfg)
+        got = ring_encode(params, ids, mask)
+        enc = dict(rows=rows, seq=seq, shards=shards, max_abs_diff=(got - want).abs().max().item(),
+                   atol=RING_EMBED_ATOL, ring_ms=timer(lambda: ring_encode(params, ids, mask), 3),
+                   plain_ms=timer(lambda: tfm.encode(params, ids, mask, cfg), 3))
+    del params, ids, mask, want, got
+
+    b, s, h, dh = attn
+    q, k, v = (torch.randn((b, s, h, dh), generator=gen, device=dev) for _ in range(3))
+    kv_mask = torch.ones((b, s), dtype=torch.int32, device=dev)
+    kv_mask[:, s - s // 8:] = 0
+    ring = spmd.shard_map(
+        lambda q_, k_, v_, m_: ring_attention(q_, k_, v_, "seq", kv_mask=m_), mesh,
+        in_specs=(P(None, "seq"),) * 4, out_specs=P(None, "seq"),
+    )
+
+    def full():
+        scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(dh)
+        scores = scores.masked_fill(kv_mask[:, None, None, :] == 0, float("-inf"))
+        return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(scores, dim=-1), v)
+
+    with torch.no_grad():
+        got = ring(q, k, v, kv_mask)
+        ref = full()
+        att = dict(b=b, s=s, h=h, dh=dh, shards=shards, max_abs_diff=(got - ref).abs().max().item(),
+                   atol=RING_ATTN_ATOL, ring_ms=timer(lambda: ring(q, k, v, kv_mask), 3),
+                   full_ms=timer(full, 3), tf32=bool(torch.backends.cuda.matmul.allow_tf32))
+        del got, ref
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            ring(q, k, v, kv_mask)
+            att["ring_transient_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+            torch.cuda.reset_peak_memory_stats()
+            full()
+            att["full_transient_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    del q, k, v
+    if on_card:
+        torch.cuda.empty_cache()
+    row = dict(phase="ring_encode", encode=enc, ring_attention=att, attention_launches=_launches(),
+               seconds=time.perf_counter() - t_phase)
+    emit(row)
+    if enc["max_abs_diff"] > RING_EMBED_ATOL or att["max_abs_diff"] > RING_ATTN_ATOL:
+        raise AssertionError(f"ring attention disagrees with full attention: {row}")
+    return row
+
+
+def train_bound(n_params: int, tokens: int) -> dict:
+    """Least time of one train step, in ms: 6 flops a parameter a token
+    (forward and backward) over the bf16 tensor-core rate, against AdamW's
+    bytes (16 a parameter: the f32 parameter, its gradient and two
+    moments) over the HBM rate."""
+    flops = 6 * n_params * tokens
+    nbytes = 16 * n_params
+    t_ops, t_bytes = flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S
+    return dict(bound_ms=max(t_ops, t_bytes) * 1e3, bound_by="operations" if t_ops >= t_bytes else "bytes",
+                flops=flops, bytes=nbytes)
+
+
+def run_train(device, lm_kw: dict, chat_kw: dict, *, batch: int, seq: int, steps: int, lr: float,
+              check_steps: int, check_batch: int, check_seq: int) -> dict:
+    """`train_step`: (a) `make_train_step` on the `lm_kw` causal LM, f32
+    parameters and bf16 compute, `steps` AdamW steps on one fixed batch of
+    `batch` x `seq` tokens: the loss must fall; step ms and tokens/s
+    beside the bound. (b) `check_steps` steps of the `chat_kw` model at
+    f32 on `device` against the same steps on the CPU from the same
+    parameters: losses within TRAIN_LOSS_RTOL relative, 99.9% of the
+    parameters within TRAIN_PARAM_ATOL and every one within 2 * lr * steps
+    (Adam turns the noise of a gradient near 0 into up to 2 * lr a step,
+    tests/test_torch_train.py)."""
+    import numpy as np
+    import torch
+
+    from pathway_tpu_torch.models import transformer as tfm
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    cfg = tfm.lm_config(dtype=torch.bfloat16, **lm_kw)
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    params = tfm.init_params(gen, cfg, dtype=torch.float32)
+    n_params = tfm.count_params(params)
+    ids = torch.randint(2, cfg.vocab_size, (batch, seq), generator=gen, device=dev)
+    mask = torch.ones((batch, seq), dtype=torch.int32, device=dev)
+    init_opt, train_step = tfm.make_train_step(cfg, learning_rate=lr)
+    opt = init_opt(params)
+    losses, step_ms = [], []
+    for _ in range(steps):
+        sync()
+        t0 = time.perf_counter()
+        params, opt, loss = train_step(params, opt, ids, mask)
+        losses.append(float(loss))  # waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    big = dict(config=lm_kw, n_params=n_params, batch=batch, seq=seq, steps=steps, lr=lr, losses=losses,
+               step_ms=step_ms, steady_step_ms=statistics.median(step_ms[1:] or step_ms),
+               **train_bound(n_params, batch * seq))
+    big["tokens_per_s"] = batch * seq / (big["steady_step_ms"] / 1e3)
+    if on_card:
+        big["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params, opt, ids, mask
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (b) the card against the CPU at f32, from the same parameters
+    small = tfm.lm_config(dtype=torch.float32, **chat_kw)
+    host = tfm.init_params(torch.Generator().manual_seed(6), small)
+    on_dev = tfm.tree_map(lambda t: t.to(dev, copy=True), host)
+    rng = np.random.default_rng(6)
+    ids_h = torch.from_numpy(rng.integers(2, small.vocab_size, (check_batch, check_seq)))
+    mask_h = torch.ones((check_batch, check_seq), dtype=torch.int32)
+    mask_h[1, check_seq // 2:] = 0
+    curves = {}
+    for where, p, ids_, mask_ in (("card", on_dev, ids_h.to(dev), mask_h.to(dev)), ("cpu", host, ids_h, mask_h)):
+        init_opt, train_step = tfm.make_train_step(small, learning_rate=lr)
+        opt = init_opt(p)
+        curve = []
+        for _ in range(check_steps):
+            p, opt, loss = train_step(p, opt, ids_, mask_)
+            curve.append(float(loss))
+        curves[where] = (curve, p)
+    diff = np.concatenate([
+        (a.detach().cpu() - b.detach()).abs().numpy().ravel()
+        for a, b in zip(tfm._leaves(curves["card"][1]), tfm._leaves(curves["cpu"][1]))
+    ])
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(curves["card"][0], curves["cpu"][0]))
+    check = dict(config=chat_kw, steps=check_steps, batch=check_batch, seq=check_seq, lr=lr,
+                 card_losses=curves["card"][0], cpu_losses=curves["cpu"][0], loss_rel_diff=loss_rel,
+                 loss_rtol=TRAIN_LOSS_RTOL, params=int(diff.size), max_param_diff=float(diff.max()),
+                 within_atol_share=float((diff <= TRAIN_PARAM_ATOL).mean()), param_atol=TRAIN_PARAM_ATOL,
+                 tf32=bool(torch.backends.cuda.matmul.allow_tf32))
+    del curves, on_dev, host
+    row = dict(phase="train_step", gemma=big, card_vs_cpu=check, attention_launches=_launches(),
+               seconds=time.perf_counter() - t_phase)
+    emit(row)
+    if (not losses[-1] < losses[0] or not all(math.isfinite(x) for x in losses) or loss_rel > TRAIN_LOSS_RTOL
+            or check["within_atol_share"] < 0.999 or check["max_param_diff"] > 2 * lr * check_steps):
+        raise AssertionError(f"the train step is wrong: {row}")
+    if on_card:
+        torch.cuda.empty_cache()
+    return row
+
+
+def run_segment(device, *, n_values: int, n_segments: int, reps: int) -> dict:
+    """`segment_reduce`: `n_values` seeded f32 and int32 values (ids over
+    [-8, n_segments + 8), so some are dropped, and none 7 mod 1024, so
+    those segments are empty)
+    into `n_segments` segments, every op, on `device` against the port's
+    CPU result: min, max, count, any and every integer result exact; f32
+    sum and mean within SEGMENT_RTOL (relative, or absolute below 1: the
+    card's atomics add in any order). Times beside a byte bound (values
+    and ids read once, the result written once)."""
+    import numpy as np
+    import torch
+
+    from pathway_tpu_torch.ops.segment import segment_reduce
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    timer = cuda_ms if dev.type == "cuda" else _cpu_ms
+    rng = np.random.default_rng(8)
+    ids = rng.integers(-8, n_segments + 8, n_values).astype(np.int32)
+    ids[ids % 1024 == 7] += 1  # segments 7, 1031, ... stay empty
+    ids = torch.from_numpy(ids)
+    data = {
+        "float32": torch.from_numpy(rng.normal(size=n_values).astype(np.float32)),
+        "int32": torch.from_numpy(rng.integers(-1000, 1000, n_values).astype(np.int32)),
+    }
+    ids_d = ids.to(dev)
+    cases, bad = [], []
+    for dtype, vals in data.items():
+        vals[::5] = 0
+        vals_d = vals.to(dev)
+        for op in ("sum", "min", "max", "count", "mean", "any"):
+            got = segment_reduce(vals_d, ids_d, n_segments, op).cpu()
+            t0 = time.perf_counter()
+            ref = segment_reduce(vals, ids, n_segments, op)
+            cpu_ms = (time.perf_counter() - t0) * 1e3
+            exact = not (dtype == "float32" and op in ("sum", "mean"))
+            if exact:
+                ok = got.dtype == ref.dtype and torch.equal(got, ref)
+                err = 0.0 if ok else float("inf")
+            else:
+                err = ((got - ref).abs() / ref.abs().clamp(min=1.0)).max().item()
+                ok = got.dtype == ref.dtype and err <= SEGMENT_RTOL
+            nbytes = vals.numel() * vals.element_size() + ids.numel() * 4 + n_segments * ref.element_size()
+            case = dict(dtype=dtype, op=op, exact=exact, ok=bool(ok), rel_err=err,
+                        ms=timer(lambda: segment_reduce(vals_d, ids_d, n_segments, op), reps), cpu_ms=cpu_ms,
+                        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+            cases.append(case)
+            if not ok:
+                bad.append(case)
+    inside = ids[(ids >= 0) & (ids < n_segments)]
+    row = dict(phase="segment_reduce", values=n_values, segments=n_segments, rtol=SEGMENT_RTOL, cases=cases,
+               empty_segments=int(n_segments - torch.unique(inside).numel()),
+               dropped_ids=int(n_values - inside.numel()), seconds=time.perf_counter() - t_phase)
+    emit(row)
+    if bad or row["empty_segments"] == 0 or row["dropped_ids"] == 0:
+        raise AssertionError(f"segment_reduce on the card disagrees with the CPU: {bad or row}")
+    return row
+
+
+def run_mesh_slots(device, chat_kw: dict, texts: list[str], *, shards: int, slots: int, requests: int,
+                   new_tokens: int) -> dict:
+    """`mesh_slots`: `ContinuousBatcher(mesh_span=True)` over `shards`
+    shards of the card (`slots` a shard) against the single-device pool of
+    `slots * shards` slots, at f32 on JaxLMChat's default model (TF32
+    off): byte-identical tokens for every request."""
+    import torch
+
+    from pathway_tpu_torch.models import transformer as tfm
+    from pathway_tpu_torch.models.tokenizer import HashTokenizer
+    from pathway_tpu_torch.serving.continuous_batching import ContinuousBatcher
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    cfg = tfm.lm_config(dtype=torch.float32, **chat_kw)
+    params = tfm.init_params(torch.Generator(device=dev).manual_seed(7), cfg)
+    tok = HashTokenizer(vocab_size=cfg.vocab_size, max_len=cfg.max_len)
+    prompts = texts[:requests]
+    outs, pools = {}, {}
+    with _mesh_env(f"{dev}*{shards}"), torch.no_grad():
+        for span in (False, True):
+            cb = ContinuousBatcher(params=params, cfg=cfg, tokenizer=tok, n_steps=new_tokens,
+                                   n_slots=slots if span else slots * shards, name=f"mesh-slots-{span}",
+                                   mesh_span=span)
+            t0 = time.perf_counter()
+            futs = [cb.submit(p) for p in prompts]
+            outs[span] = ([f.result(timeout=600) for f in futs], time.perf_counter() - t0)
+            cb.drain()
+            pools[span] = dict(n_slots=cb.n_slots, shards=cb.mesh.size if cb.mesh is not None else 1,
+                               decode_steps=cb.stats["decode_steps"], prefills=cb.stats["prefills"])
+    differ = [i for i, (a, b) in enumerate(zip(outs[False][0], outs[True][0])) if a != b]
+    row = dict(phase="mesh_slots", config=chat_kw, requests=len(prompts), new_tokens=new_tokens,
+               single=dict(**pools[False], seconds=outs[False][1]),
+               spanning=dict(**pools[True], seconds=outs[True][1]),
+               equal=len(prompts) - len(differ), differ=differ, tf32=bool(torch.backends.cuda.matmul.allow_tf32),
+               attention_launches=_launches(), seconds=time.perf_counter() - t_phase)
+    emit(row)
+    if differ or pools[True]["shards"] != shards or pools[True]["n_slots"] != slots * shards or row["tf32"]:
+        raise AssertionError(f"the mesh-spanning slot pool differs from the single-device pool: {row}")
+    return row
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -2242,6 +2900,15 @@ def main() -> int:
 
     result = run_slice("cuda", FLAGSHIP, N_DOCS, DOC_BATCH, DOC_SEQ, ROOT)
 
+    # the device mesh over the slice's slab and embeddings (MESH_SHARDS
+    # shards of the card), the attention kernel's launches read across it
+    _build.reset_launch_counts()
+    slab = result["vectors"][:N_DOCS]
+    run_mesh_knn("cuda", slab, result["query_vecs"], shards=MESH_SHARDS, k=TOP_K, reps=30)
+    run_mesh_exchange("cuda", slab, shards=MESH_SHARDS, groupby_rows=GROUPBY_ROWS, groupby_groups=GROUPBY_GROUPS)
+    mesh_launches = _launches()
+    del slab
+
     # the host engine and the live-RAG pipeline on it, each RAG phase's
     # launch count read across that phase alone
     import tempfile
@@ -2283,7 +2950,7 @@ def main() -> int:
     run_ann("cuda", ann_rows=ANN_ROWS, vectors=ann_vectors, query_vecs=result["query_vecs"],
             query_keys=[key - N_DOCS + ANN_INDEX_DOCS for key in result["query_keys"]],
             slab_p50_ms=result["knn"]["search_batch_p50_ms"],
-            churn_waves=CHURN_WAVES, churn_wave=CHURN_WAVE, reps=30)
+            churn_waves=CHURN_WAVES, churn_wave=CHURN_WAVE, reps=30, mesh_shards=MESH_SHARDS)
     del ann_vectors
     t0 = time.perf_counter()
     run_ann_tiered("cuda", vectors=tiered_vectors, query_vecs=result["query_vecs"],
@@ -2305,13 +2972,28 @@ def main() -> int:
                  prompt_len=GEN_PROMPT, new_tokens=GEN_NEW, cb_requests=CB_REQUESTS,
                  cb_new=CB_NEW, cb_slots=CB_SLOTS, eq_prompts=EQ_PROMPTS, eq_batch=EQ_BATCH)
     emit(dict(phase="generate_launches", kernel_launches=dict(_build.LAUNCHES)))
+
+    # tensor- and sequence-parallel models, the training step, the
+    # segment reductions and the mesh-spanning slot pool
+    _build.reset_launch_counts()
+    run_mesh_tp("cuda", FLAGSHIP, GEMMA_2B, mesh_shape=TP_MESH, enc_rows=TP_ENC_ROWS, enc_seq=DOC_SEQ,
+                lm_rows=TP_LM_ROWS, lm_seq=TP_LM_SEQ)
+    run_ring("cuda", FLAGSHIP, shards=MESH_SHARDS, rows=RING_ROWS, seq=DOC_SEQ, attn=RING_ATTN)
+    run_train("cuda", GEMMA_2B, CHAT_DEFAULT, batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS, lr=TRAIN_LR,
+              check_steps=TRAIN_CHECK_STEPS, check_batch=TRAIN_CHECK_BATCH, check_seq=TRAIN_CHECK_SEQ)
+    run_segment("cuda", n_values=SEGMENT_VALUES, n_segments=SEGMENT_SEGMENTS, reps=10)
+    run_mesh_slots("cuda", CHAT_DEFAULT, load_texts(ROOT, seed=2), shards=SLOTS_SHARDS, slots=SLOTS_PER_SHARD,
+                   requests=SLOTS_REQUESTS, new_tokens=SLOTS_NEW)
+    mesh_launches += _launches()
+    emit(dict(phase="mesh_launches", kernel_launches=mesh_launches))
     emit(dict(phase="total", seconds=time.perf_counter() - t_start, card=card))
 
     print(json.dumps({"kernels": [dict(
         name="fused_qkv_attention", route="cuda",
         source="pathway_tpu_torch/csrc/attention.cu",
         replaces="pathway_tpu/ops/attention.py:38",
-        launches=result["launches"] + engine["launches"] + store["launches"] + spawn["attention_launches"],
+        launches=(result["launches"] + engine["launches"] + store["launches"] + spawn["attention_launches"]
+                  + mesh_launches),
         max_abs_err=max(r["max_abs_err"] for r in rows),
         ms=main_shape["ms"], plain_ms=main_shape["plain_ms"],
         bound_ms=main_shape["bound_ms"], bound_by=main_shape["bound_by"],

@@ -16,7 +16,11 @@ The stdlib is the reference's: ``pw.graphs``, ``pw.indexing``, ``pw.ml``,
 ``pw.ordered``, ``pw.stateful``, ``pw.statistical``, ``pw.temporal``,
 ``pw.utils`` and ``pw.viz``. ``python -m pathway_tpu_torch spawn -n N --
 app.py`` runs a pipeline as N cooperating processes over the TCP mesh,
-with elastic membership and blue/green swaps in ``parallel/``.
+with elastic membership and blue/green swaps in ``parallel/``; inside one
+process, ``parallel/mesh.py`` and ``parallel/spmd.py`` shard the numeric
+plane over a device mesh (sharded search, tensor- and sequence-parallel
+models, the key-hash exchange, mesh-spanning slot pools), and
+``models.make_train_step`` trains the causal LM.
 """
 
 from __future__ import annotations

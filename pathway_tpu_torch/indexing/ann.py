@@ -1,8 +1,7 @@
 """IvfPqIndex: the incremental IVF-PQ index, resident on the card.
 
-Counterpart of ``pathway_tpu/indexing/ann.py`` (the all-resident index
-and its RAM/disk tiers; the mesh-sharded search waits for the
-multi-device slice).
+Counterpart of ``pathway_tpu/indexing/ann.py``: the all-resident index,
+its RAM/disk tiers and its mesh-sharded search.
 `VectorSlabIndex` answers every query by scanning the whole slab; this
 subclass keeps the same host bookkeeping (slots, keys, tombstone mask,
 (score, key) re-rank) and maintains an IVF-PQ routing structure
@@ -47,6 +46,16 @@ carries the run manifest and the RAM-resident blocks only.
 `counters` and `stats()` are what callers read; with the observability
 plane armed the index also publishes its gauges (``pathway_index_*``) to
 the metrics registry, as the JAX package does, tier gauges included.
+
+**Sharded search** (``sharded=True`` or ``PATHWAY_ANN_SHARDED=1``): the
+generation's routing lists spread over the ``data`` axis of
+``parallel.mesh.default_mesh()`` (every CUDA device, or the shards
+``PATHWAY_MESH_DEVICES`` names) through ``ops.ivf.shard_ivf_pq``, and a
+search runs ``ivf_pq_search_sharded``. The placed view is rebuilt lazily
+on the first search after a mutation, so it suits read-heavy serving. A
+mesh of one shard, or a failed sharded search, raises: the JAX package's
+3-strike switch back to the single-device search is not ported. Tiers
+take precedence over the sharded view, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -211,8 +220,8 @@ class IvfPqIndex(VectorSlabIndex):
     mirror. `tiered`/`hot_lists`/`ram_lists` place the routing lists in
     the hot/warm/cold tiers (module doc; ``PATHWAY_ANN_TIERED=0`` vetoes,
     ``=1`` opts in with auto budgets); `background_tiering` runs the
-    rebalance every `tier_interval` seconds. `sharded` (the mesh search)
-    raises NotImplementedError until the multi-device slice lands.
+    rebalance every `tier_interval` seconds. `sharded` (the mesh search,
+    module doc) reads ``PATHWAY_ANN_SHARDED`` when it is None.
     """
 
     def __init__(
@@ -238,11 +247,6 @@ class IvfPqIndex(VectorSlabIndex):
         background_tiering: bool = True,
         tier_interval: float = 5.0,
     ):
-        if sharded if sharded is not None else os.environ.get("PATHWAY_ANN_SHARDED") == "1":
-            raise NotImplementedError(
-                "the mesh-sharded IVF-PQ search is not ported yet; it comes with "
-                "the multi-device slice (ROADMAP A9)"
-            )
         super().__init__(
             dimensions=dimensions,
             reserved_space=reserved_space,
@@ -272,7 +276,13 @@ class IvfPqIndex(VectorSlabIndex):
         self._ann_full: torch.Tensor | None = None  # [padded_slots, d] f32
         self._ann_full_slots = 0
         self._ann_dirty_slots: set[int] = set()
-        self._mutations = 0  # keys the hot sub-cube mirror
+        self._mutations = 0  # keys the hot sub-cube mirror and the sharded view
+        # the list-sharded mesh search (module doc): opt-in, read here once
+        self._shard_search = bool(
+            sharded if sharded is not None else os.environ.get("PATHWAY_ANN_SHARDED") == "1"
+        ) and device is not False
+        self._sharded_view: _ivf.ShardedIvfPq | None = None
+        self._sharded_key = None
         # tier placement: constructor budgets opt in, PATHWAY_ANN_TIERED=1
         # opts in with auto budgets, =0 always vetoes (read here, once)
         self.hot_lists = hot_lists
@@ -304,6 +314,9 @@ class IvfPqIndex(VectorSlabIndex):
             # tiered searches by route: the hot sub-cube on the device,
             # or the numpy search over warm/cold lists on the host
             "tier_device_searches": 0,
+            # searches over the mesh-sharded view, and its placements
+            "sharded_searches": 0,
+            "sharded_placements": 0,
             "tier_host_searches": 0,
             "hot_mirror_rebuilds": 0,
         }
@@ -354,6 +367,8 @@ class IvfPqIndex(VectorSlabIndex):
         st["_tier_stop"] = None
         st["_tier_dev"] = None
         st["_tier_dev_key"] = None
+        st["_sharded_view"] = None
+        st["_sharded_key"] = None
         return st
 
     def __setstate__(self, st):
@@ -830,6 +845,8 @@ class IvfPqIndex(VectorSlabIndex):
         ts = self._tiers
         if ts is not None and ts.version == gen.version:
             return self._ann_topk_tiered(qmat, k, gen, ts, nprobe)
+        if self._shard_search:
+            return self._ann_topk_sharded(qmat, k, gen, nprobe)
         if self.device is None:
             return self._ann_topk_host(qmat, k, gen, nprobe)
         return self._ann_topk_device(qmat, k, gen, nprobe)
@@ -846,6 +863,37 @@ class IvfPqIndex(VectorSlabIndex):
                 metric=self.metric,
             )
         return self._collect(slots_out, dists)
+
+    def _ann_topk_sharded(self, qmat, k, gen: _Generation, nprobe: int):
+        """Search with the routing lists sharded over the default mesh's
+        `data` axis: each shard scans the probed lists it owns, the merge
+        moves k slots a shard. The placed view is cached per (generation,
+        mutation count, slots), so its rebuild lands on the first search
+        after a write."""
+        from pathway_tpu_torch.parallel.mesh import default_mesh
+
+        with self._gen_lock:
+            key = (gen.version, self._mutations, self.n_slots)
+            if self._sharded_key != key:
+                mesh = default_mesh(("data",))
+                if mesh.size < 2:
+                    raise RuntimeError(
+                        f"ANN index {self.name}: the sharded search needs a mesh of at least "
+                        f"two shards, the default mesh has {mesh.size} (set PATHWAY_MESH_DEVICES, "
+                        "e.g. cuda:0*4, or build the index with sharded=False)"
+                    )
+                self._sharded_view = None  # the old placement goes first
+                self._sharded_view = _ivf.shard_ivf_pq(
+                    gen.as_arrays(self.vectors[: self.n_slots]), mesh
+                )
+                self._sharded_key = key
+                self.counters["sharded_placements"] += 1
+            slots_out, dists = _ivf.ivf_pq_search_sharded(
+                qmat.astype(np.float32), self._sharded_view, min(k, len(self.slot_of)),
+                nprobe=nprobe, candidates=self._candidates(k, gen), metric=self.metric,
+            )
+            self.counters["sharded_searches"] += 1
+        return self._collect(slots_out.cpu().numpy(), dists.cpu().numpy())
 
     def _ann_topk_device(self, qmat, k, gen: _Generation, nprobe: int):
         # the whole refresh + dispatch stays under the generation lock:

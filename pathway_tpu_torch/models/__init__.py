@@ -12,6 +12,10 @@ from pathway_tpu_torch.models.transformer import (
     forward,
     init_params,
     lm_config,
+    lm_loss,
+    make_train_step,
+    param_specs,
+    shard_params,
 )
 
 __all__ = [
@@ -25,4 +29,8 @@ __all__ = [
     "forward",
     "init_params",
     "lm_config",
+    "lm_loss",
+    "make_train_step",
+    "param_specs",
+    "shard_params",
 ]

@@ -13,6 +13,31 @@ the JAX package's does off the TPU. The decoder's
 causal and cached attention is plain PyTorch (:func:`_attend`), as the
 JAX package leaves it to XLA.
 
+The device mesh (``parallel/mesh.py``, ``parallel/spmd.py``) carries the
+JAX package's two parallel forms:
+
+* **tensor parallelism** over the mesh's ``model`` axis
+  (:func:`param_specs`, :func:`shard_params`, ``TransformerLM.shard``):
+  each device holds its slice of every sharded parameter. XLA partitions
+  the JAX forward on its own; here the forward is written per shard:
+  the vocabulary-sharded embedding looks up its own rows and a ``psum``
+  adds them, ``qkv`` and ``ff_in`` are column-parallel, ``o`` and
+  ``ff_out`` row-parallel with f32 partial sums added by a ``psum`` and
+  rounded once, and the logits and the pooling head gather their
+  column blocks. ``qkv``'s column blocks do not line up with head
+  boundaries for a general shard count, so its output blocks are
+  gathered and every shard of a ``model`` group runs the whole
+  attention (the unsharded ``fused_attention=False`` route). The batch
+  is split over ``data`` when the mesh has that axis.
+* **sequence parallelism** (``cfg.seq_axis``): ``forward``/``encode``
+  run inside ``spmd.shard_map`` on [b, s_local] blocks, attention is
+  ``ops.attention.ring_attention``, positions are offset by the block,
+  and mean pooling adds its partial sums over the ring.
+
+:func:`lm_loss` and :func:`make_train_step` train the causal LM: AdamW
+through ``torch.optim.AdamW``, with the JAX package's
+``optax.adamw(lr, weight_decay=0.01)`` constants.
+
 The decoder's KV cache is head-major, [layers, batch, heads, max_len,
 head_dim] (the JAX package keeps [layers, batch, max_len, heads,
 head_dim]): one row's keys of one head are contiguous, so q.kᵀ and p.v
@@ -24,6 +49,7 @@ tensor the caller passes, where the JAX package returns a new array.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable
 
@@ -32,8 +58,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from pathway_tpu_torch.engine.device_plane import resolve_device
-from pathway_tpu_torch.ops.attention import fused_qkv_attention, reference_attention
+from pathway_tpu_torch.ops.attention import fused_qkv_attention, reference_attention, ring_attention
 from pathway_tpu_torch.ops.distances import normalize
+from pathway_tpu_torch.parallel import spmd
+from pathway_tpu_torch.parallel.mesh import Mesh, P, Sharded
 
 Params = dict[str, Any]
 
@@ -55,8 +83,10 @@ class TransformerConfig:
     # and s <= 128 and raises outside them; False runs the plain
     # `reference_attention` on any device and at any of those.
     fused_attention: bool = True
-    # Sequence parallelism over a mesh axis (ring attention) comes with
-    # the multi-device slice; any value but None raises.
+    # Sequence parallelism: the name of the mesh axis the sequence is
+    # sharded over. When set, forward/encode run inside spmd.shard_map on
+    # [b, s_local] blocks, attention is ring_attention, and positions and
+    # mean pooling account for the block offset (module docstring).
     seq_axis: str | None = None
 
     @property
@@ -68,11 +98,6 @@ class TransformerConfig:
             raise ValueError(f"pool must be mean|cls|last, got {self.pool!r}")
         if self.d_model % self.n_heads != 0:
             raise ValueError("d_model must be divisible by n_heads")
-        if self.seq_axis is not None:
-            raise NotImplementedError(
-                "seq_axis (ring attention over a mesh axis) is not ported yet; it "
-                "comes with the multi-device slice (ROADMAP A9)"
-            )
 
 
 def embedder_config(**kw) -> TransformerConfig:
@@ -142,6 +167,44 @@ def cast_params(params: Params, dtype: torch.dtype = torch.bfloat16) -> Params:
     return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x, params)
 
 
+def param_specs(cfg: TransformerConfig) -> Params:
+    """PartitionSpecs: tensor-parallel over the `model` mesh axis, as the
+    JAX package's. qkv/ff_in are column-parallel (output dim sharded),
+    o/ff_out row-parallel (input dim sharded); the embedding shards the
+    vocabulary, the head its output features; norms and positions are
+    replicated."""
+    block = {
+        "qkv": P(None, "model"),
+        "o": P("model", None),
+        "ff_in": P(None, "model"),
+        "ff_out": P("model", None),
+        "ln1_scale": P(None),
+        "ln2_scale": P(None),
+    }
+    return {
+        "tok_embed": P("model", None),
+        "pos_embed": P(None, None),
+        "ln_f_scale": P(None),
+        "head": P(None, "model"),
+        "blocks": [dict(block) for _ in range(cfg.n_layers)],
+    }
+
+
+def shard_params(params: Params, mesh: Mesh, cfg: TransformerConfig) -> Params:
+    """The parameter tree placed on `mesh` under :func:`param_specs`: a
+    tree of :class:`~pathway_tpu_torch.parallel.mesh.Sharded` leaves, each
+    device holding its own copy of its block."""
+    specs = param_specs(cfg)
+    out: Params = {
+        k: Sharded.from_global(v, mesh, specs[k]) for k, v in params.items() if k != "blocks"
+    }
+    out["blocks"] = [
+        {k: Sharded.from_global(v, mesh, spec[k]) for k, v in blk.items()}
+        for blk, spec in zip(params["blocks"], specs["blocks"], strict=True)
+    ]
+    return out
+
+
 def count_params(params: Params) -> int:
     top = sum(v.numel() for k, v in params.items() if k != "blocks")
     return top + sum(v.numel() for blk in params["blocks"] for v in blk.values())
@@ -156,20 +219,54 @@ def _rmsnorm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return (x32 * torch.rsqrt(var + 1e-6) * scale).to(x.dtype)
 
 
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if b.dim() == 2:
+        out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
+        return out.reshape(*a.shape[:-1], b.shape[-1])
+    return torch.bmm(a, b, out_dtype=torch.float32)
+
+
+class _F32Matmul(torch.autograd.Function):
+    """:func:`_mm_f32` with its gradient, for training on the card: each
+    operand's gradient is an f32 product of the f32 cotangent and the
+    other operand widened to f32, rounded to the operand's dtype (the
+    transpose of the JAX package's dot with
+    ``preferred_element_type=float32``)."""
+
+    @staticmethod
+    def forward(ctx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(a, b)
+        return _mm_f32(a, b)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.matmul(g, b.float().transpose(-1, -2)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            if b.dim() == 2:
+                gb = torch.mm(a.reshape(-1, a.shape[-1]).float().t(), g.reshape(-1, g.shape[-1]))
+            else:
+                gb = torch.bmm(a.float().transpose(1, 2), g)
+            gb = gb.to(b.dtype)
+        return ga, gb
+
+
 def _f32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` with products in the operands' dtype and sums in f32,
     returned in f32: the JAX package's einsum with
     ``preferred_element_type=float32``. On the card one cuBLAS call writes
     f32 straight from bf16 operands, strided views included, so neither
     operand is widened or copied (`b` may be a transposed view of the KV
-    cache or of the embedding). The CPU has no such overload: there the
-    operands widen to f32 first, which gives the same exact products."""
+    cache or of the embedding); under autograd that call goes through
+    :class:`_F32Matmul`. The CPU has no such overload: there the operands
+    widen to f32 first, which gives the same exact products."""
     if a.device.type != "cuda" or a.dtype == torch.float32:
         return torch.matmul(a.float(), b.float())
-    if b.dim() == 2:
-        out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
-        return out.reshape(*a.shape[:-1], b.shape[-1])
-    return torch.bmm(a, b, out_dtype=torch.float32)
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return _F32Matmul.apply(a, b)
+    return _mm_f32(a, b)
 
 
 def _attend(
@@ -205,16 +302,25 @@ def _qkv_heads(
     return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
 
+def _ctx(qkv: torch.Tensor, token_mask: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
+    """Attention over the fused projection qkv [b, s, 3d]: ctx [b, s, d]."""
+    b, s, _ = qkv.shape
+    if cfg.seq_axis is not None:
+        q, k, v = qkv.view(b, s, 3, cfg.n_heads, cfg.head_dim).unbind(2)
+        return ring_attention(
+            q, k, v, cfg.seq_axis, causal=cfg.causal, kv_mask=token_mask
+        ).reshape(b, s, cfg.d_model)
+    if cfg.causal:
+        q, k, v = (t.transpose(1, 2) for t in qkv.view(b, s, 3, cfg.n_heads, cfg.head_dim).unbind(2))
+        return _attend(q, k, v, _build_mask(token_mask, causal=True), cfg)
+    attend = fused_qkv_attention if cfg.fused_attention else reference_attention
+    return attend(qkv, token_mask, cfg.n_heads)
+
+
 def _attention(
     x: torch.Tensor, block: Params, cfg: TransformerConfig, token_mask: torch.Tensor
 ) -> torch.Tensor:
-    if cfg.causal:
-        q, k, v = _qkv_heads(x, block, cfg)
-        ctx = _attend(q, k, v, _build_mask(token_mask, causal=True), cfg)
-    else:
-        qkv = torch.matmul(x, block["qkv"].to(cfg.dtype))
-        attend = fused_qkv_attention if cfg.fused_attention else reference_attention
-        ctx = attend(qkv, token_mask, cfg.n_heads)
+    ctx = _ctx(torch.matmul(x, block["qkv"].to(cfg.dtype)), token_mask, cfg)
     return torch.matmul(ctx, block["o"].to(cfg.dtype))
 
 
@@ -246,12 +352,24 @@ def forward(
     params: Params, token_ids: torch.Tensor, token_mask: torch.Tensor,
     cfg: TransformerConfig,
 ) -> torch.Tensor:
-    """Hidden states [b, s, d_model] in cfg.dtype."""
+    """Hidden states [b, s, d_model] in cfg.dtype. With ``cfg.seq_axis``
+    this is one shard's block of the sequence, inside ``spmd.shard_map``."""
     s = token_ids.shape[1]
-    if s > cfg.max_len:
-        raise ValueError(f"sequence length {s} exceeds max_len={cfg.max_len}")
     x = params["tok_embed"].to(cfg.dtype)[token_ids]
-    x = x + params["pos_embed"].to(cfg.dtype)[None, :s, :]
+    if cfg.seq_axis is not None:
+        # positions offset by this shard's block; the ring size is known,
+        # so an over-long sequence fails here rather than clamping
+        n_blocks = spmd.axis_size(cfg.seq_axis)
+        if n_blocks * s > cfg.max_len:
+            raise ValueError(
+                f"sequence-parallel length {n_blocks}x{s} exceeds max_len={cfg.max_len}"
+            )
+        offset = spmd.axis_index(cfg.seq_axis) * s
+        x = x + params["pos_embed"].to(cfg.dtype)[None, offset:offset + s, :]
+    else:
+        if s > cfg.max_len:
+            raise ValueError(f"sequence length {s} exceeds max_len={cfg.max_len}")
+        x = x + params["pos_embed"].to(cfg.dtype)[None, :s, :]
     for block in params["blocks"]:
         x = _block_fwd(x, block, cfg, token_mask)
     return _rmsnorm(x, params["ln_f_scale"])
@@ -263,18 +381,30 @@ def encode(
 ) -> torch.Tensor:
     """Pooled, L2-normalized embeddings [b, embed_dim] (f32)."""
     h = forward(params, token_ids, token_mask, cfg)
+    return normalize(_pool(h, token_mask, cfg) @ params["head"].float())
+
+
+def _pool(h: torch.Tensor, token_mask: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
+    """The encoder's pooled hidden state [b, d_model] (f32)."""
+    if cfg.seq_axis is not None and cfg.pool != "mean":
+        # 'cls'/'last' would need a block broadcast across the ring
+        raise NotImplementedError("sequence-parallel encode supports mean pooling")
     if cfg.pool == "mean":
-        # mask-and-sum in cfg.dtype, divide in f32 (as the JAX package)
+        # mask-and-sum in cfg.dtype, divide in f32 (as the JAX package);
+        # under sequence parallelism the block partials add over the ring
         m16 = token_mask.to(cfg.dtype)[:, :, None]
         part = torch.sum(h * m16, dim=1).float()
         cnt = torch.sum(token_mask, dim=1, keepdim=True).float()
+        if cfg.seq_axis is not None:
+            part = spmd.psum(part, cfg.seq_axis)
+            cnt = spmd.psum(cnt, cfg.seq_axis)
         pooled = part / torch.clamp(cnt, min=1.0)
     elif cfg.pool == "cls":
         pooled = h[:, 0, :].float()
     else:  # last valid token
         idx = torch.clamp(torch.sum(token_mask, dim=1) - 1, min=0)
         pooled = h[torch.arange(h.shape[0], device=h.device), idx, :].float()
-    return normalize(pooled @ params["head"].float())
+    return pooled
 
 
 def _tied_logits(h: torch.Tensor, params: Params, cfg: TransformerConfig) -> torch.Tensor:
@@ -289,6 +419,143 @@ def logits(
 ) -> torch.Tensor:
     """LM logits [b, s, vocab] (f32) via the tied embedding."""
     return _tied_logits(forward(params, token_ids, token_mask, cfg), params, cfg)
+
+
+# ------------------------------------------------------- tensor parallelism
+#
+# Each function runs inside spmd.shard_map on one device's blocks of the
+# parameter tree (shard_params) and its rows of the batch; the blocks are
+# cut over the `model` mesh axis, as param_specs names it.
+
+
+def _tp_forward(
+    local: Params, token_ids: torch.Tensor, token_mask: torch.Tensor, cfg: TransformerConfig
+) -> torch.Tensor:
+    """Hidden states [b, s, d] of this shard's rows, as :func:`forward`
+    with ``fused_attention=False``."""
+    dt = cfg.dtype
+    s = token_ids.shape[1]
+    if s > cfg.max_len:
+        raise ValueError(f"sequence length {s} exceeds max_len={cfg.max_len}")
+    # the vocabulary-sharded lookup: each id's row lives on one shard,
+    # the others add zeros, so the psum is exact
+    emb = local["tok_embed"].to(dt)
+    rows = emb.shape[0]
+    lid = token_ids - spmd.axis_index("model") * rows
+    hit = (lid >= 0) & (lid < rows)
+    x = torch.where(hit[..., None], emb[lid.clamp(0, rows - 1)], torch.zeros((), dtype=dt, device=emb.device))
+    x = spmd.psum(x, "model")
+    x = x + local["pos_embed"].to(dt)[None, :s, :]
+    for blk in local["blocks"]:
+        x = x + _tp_attention(_rmsnorm(x, blk["ln1_scale"]), blk, cfg, token_mask)
+        x = x + _tp_ffn(_rmsnorm(x, blk["ln2_scale"]), blk, cfg)
+    return _rmsnorm(x, local["ln_f_scale"])
+
+
+def _gather_cols(part: torch.Tensor) -> torch.Tensor:
+    """The full last dimension from every model shard's column block."""
+    return torch.cat(list(spmd.all_gather(part, "model")), dim=-1)
+
+
+def _row_parallel(x: torch.Tensor, w: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
+    """This shard's column block of the input times its row block of `w`:
+    f32 partial sums added over the model shards and rounded once."""
+    return spmd.psum(_f32_matmul(x, w.to(cfg.dtype)), "model").to(cfg.dtype)
+
+
+def _tp_attention(x, blk: Params, cfg: TransformerConfig, token_mask) -> torch.Tensor:
+    ctx = _ctx(_gather_cols(torch.matmul(x, blk["qkv"].to(cfg.dtype))), token_mask, cfg)
+    rows = blk["o"].shape[0]
+    lo = spmd.axis_index("model") * rows
+    return _row_parallel(ctx[..., lo:lo + rows], blk["o"], cfg)
+
+
+def _tp_ffn(x, blk: Params, cfg: TransformerConfig) -> torch.Tensor:
+    hline = F.gelu(torch.matmul(x, blk["ff_in"].to(cfg.dtype)), approximate="tanh")
+    return _row_parallel(hline, blk["ff_out"], cfg)
+
+
+def _tp_encode(local: Params, token_ids, token_mask, cfg: TransformerConfig) -> torch.Tensor:
+    pooled = _pool(_tp_forward(local, token_ids, token_mask, cfg), token_mask, cfg)
+    return normalize(_gather_cols(pooled @ local["head"].float()))
+
+
+def _tp_logits(local: Params, token_ids, token_mask, cfg: TransformerConfig) -> torch.Tensor:
+    return _gather_cols(_tied_logits(_tp_forward(local, token_ids, token_mask, cfg), local, cfg))
+
+
+# ------------------------------------------------------------- train step
+
+
+def lm_loss(
+    params: Params, token_ids: torch.Tensor, token_mask: torch.Tensor, cfg: TransformerConfig
+) -> torch.Tensor:
+    """Next-token cross-entropy (f32 scalar). Requires a causal config:
+    with bidirectional attention the target token is visible to its own
+    position and the loss degenerates to copying."""
+    if not cfg.causal:
+        raise ValueError("lm_loss requires causal=True (use lm_config)")
+    lg = logits(params, token_ids, token_mask, cfg)
+    targets = torch.roll(token_ids, -1, dims=1).long()
+    valid = token_mask.float()
+    valid = valid * torch.roll(valid, -1, dims=1)
+    valid[:, -1] = 0.0
+    nll = -torch.log_softmax(lg, dim=-1).gather(-1, targets[:, :, None])[:, :, 0]
+    return torch.sum(nll * valid) / torch.clamp(torch.sum(valid), min=1.0)
+
+
+def _leaves(params: Params) -> list[torch.Tensor]:
+    top = [v for k, v in params.items() if k != "blocks"]
+    return top + [v for blk in params["blocks"] for v in blk.values()]
+
+
+def make_train_step(cfg: TransformerConfig, learning_rate: float = 1e-3):
+    """Returns ``(init_opt, train_step)`` with the JAX package's
+    signatures: ``opt_state = init_opt(params)`` and ``params, opt_state,
+    loss = train_step(params, opt_state, token_ids, token_mask)``.
+
+    The optimizer is ``torch.optim.AdamW(lr, betas=(0.9, 0.999),
+    eps=1e-8, weight_decay=0.01)``: decoupled decay scaled by the
+    learning rate and bias-corrected moments, the update of
+    ``optax.adamw(lr, weight_decay=0.01)``. The step is functional in its
+    signature, but torch updates tensors in place: ``init_opt`` makes the
+    leaves of the tree it is given the trained tensors (they start to
+    require grad), and ``train_step`` returns that tree; a different tree
+    passed to ``train_step`` is copied into it first. Keep a copy of the
+    initial values if they are needed later. Parameters stay in their
+    dtype (f32 masters); the forward computes in ``cfg.dtype``."""
+
+    def init_opt(params: Params) -> dict:
+        leaves = _leaves(params)
+        for t in leaves:
+            if not t.is_leaf:
+                raise ValueError("init_opt needs leaf tensors (detach them first)")
+            t.requires_grad_(True)
+        opt = torch.optim.AdamW(
+            leaves, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.01
+        )
+        return {"params": params, "optimizer": opt}
+
+    def train_step(params: Params, opt_state: dict, token_ids: torch.Tensor, token_mask: torch.Tensor):
+        held = opt_state["params"]
+        if params is not held:
+            with torch.no_grad():
+                for dst, src in zip(_leaves(held), _leaves(params), strict=True):
+                    dst.copy_(src)
+        opt = opt_state["optimizer"]
+        opt.zero_grad(set_to_none=True)
+        with torch.enable_grad():
+            loss = lm_loss(held, token_ids, token_mask, cfg)
+            loss.backward()
+        # a leaf the loss never reaches (the LM's unused `head`) still
+        # decays, as under optax; torch.optim skips a None gradient
+        for t in _leaves(held):
+            if t.grad is None:
+                t.grad = torch.zeros_like(t)
+        opt.step()
+        return held, opt_state, loss.detach()
+
+    return init_opt, train_step
 
 
 # ---------------------------------------------------------------- decoding
@@ -567,11 +834,55 @@ class TransformerEncoder(nn.Module):
 
 class TransformerLM(TransformerEncoder):
     """A model of either kind (encoder or causal LM) with the JAX
-    package's ``TransformerLM`` surface: ``encode`` and ``logits``. Its
-    tensor-parallel ``shard`` waits for the multi-device port."""
+    package's ``TransformerLM`` surface: ``encode``, ``logits`` and the
+    tensor-parallel ``shard``."""
+
+    mesh: Mesh | None = None
+    sharded_params: Params | None = None
+
+    @property
+    def params(self) -> Params:
+        if self.sharded_params is not None:
+            return self.sharded_params
+        return super().params
+
+    def shard(self, mesh: Mesh) -> None:
+        """Tensor-parallel parameters over the mesh's ``model`` axis (batch
+        over ``data`` when it has one). Turns the fused attention kernel
+        off, as the JAX package does, and drops the unsharded tree: each
+        device keeps only its blocks."""
+        if "model" not in mesh.shape:
+            raise ValueError(f"tensor parallelism needs a 'model' mesh axis, got {mesh.shape}")
+        self.cfg = dataclasses.replace(self.cfg, fused_attention=False)
+        sharded = shard_params(self.params, mesh, self.cfg)
+        self.top = nn.ParameterDict()
+        self.blocks = nn.ModuleList()
+        self.mesh, self.sharded_params = mesh, sharded
+
+    def shard_bytes(self) -> list[int]:
+        """Parameter bytes each mesh device holds (flat mesh order)."""
+        if self.sharded_params is None:
+            raise ValueError("the model is not sharded")
+        per = [0] * self.mesh.size
+        for leaf in _leaves(self.sharded_params):
+            for i, b in enumerate(leaf.shard_bytes()):
+                per[i] += b
+        return per
+
+    def _tp_call(self, fn, token_ids: torch.Tensor, token_mask: torch.Tensor) -> torch.Tensor:
+        rows = P("data") if "data" in self.mesh.shape else P()
+        mapped = spmd.shard_map(
+            functools.partial(fn, cfg=self.cfg), self.mesh,
+            in_specs=(param_specs(self.cfg), rows, rows), out_specs=rows,
+        )
+        return mapped(self.sharded_params, token_ids, token_mask)
 
     def encode(self, token_ids: torch.Tensor, token_mask: torch.Tensor) -> torch.Tensor:
+        if self.mesh is not None:
+            return self._tp_call(_tp_encode, token_ids, token_mask)
         return encode(self.params, token_ids, token_mask, self.cfg)
 
     def logits(self, token_ids: torch.Tensor, token_mask: torch.Tensor) -> torch.Tensor:
+        if self.mesh is not None:
+            return self._tp_call(_tp_logits, token_ids, token_mask)
         return logits(self.params, token_ids, token_mask, self.cfg)

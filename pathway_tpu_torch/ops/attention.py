@@ -14,6 +14,11 @@ on the H100 (PERF.md gives the bound per shape); the source's header
 says what its design does about that. On a CPU tensor the wrapper runs
 ``reference_attention``, the plain version the tests and
 ``chip_smoke.py`` hold the kernel against.
+
+``ring_attention`` is the sequence-parallel attention of the JAX
+package's ``seq_axis`` encoders: an XLA program there, plain PyTorch
+here, run inside ``parallel/spmd.py:shard_map`` with the sequence cut
+over a mesh axis.
 """
 
 from __future__ import annotations
@@ -125,3 +130,69 @@ def reference_attention(
     probs = torch.softmax(scores, dim=-1).to(qkv.dtype)
     ctx = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v).to(qkv.dtype)
     return ctx.reshape(b, s, d)
+
+
+def ring_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    axis_name: str,
+    *,
+    causal: bool = False,
+    kv_mask: torch.Tensor | None = None,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Exact multi-head attention over a sequence sharded on `axis_name`.
+
+    Call inside a ``shard_map`` body with q/k/v [b, s_local, h, dh]
+    holding this shard's block of the sequence (the global sequence is
+    the blocks in axis order). `kv_mask` [b, s_local] marks the valid keys
+    of the local block and travels with its K/V. The K/V blocks rotate
+    around the ring (``spmd.ppermute``, n - 1 rotations after the local
+    block) while each shard folds them into a streaming softmax in f32:
+    a running max `m`, normaliser `l` and unnormalised output `o`, so no
+    shard holds more than [b, h, s_local, s_local] scores. Returns ctx
+    [b, s_local, h, dh] in q's dtype. A query with no valid key at all
+    gets zeros, as in the JAX package."""
+    from pathway_tpu_torch.parallel import spmd
+
+    n = spmd.axis_size(axis_name)
+    my = spmd.axis_index(axis_name)
+    b, s_loc, h, dh = q.shape
+    sc = scale if scale is not None else 1.0 / math.sqrt(dh)
+    qf = q.float()
+    ar = torch.arange(s_loc, device=q.device)
+    q_pos = my * s_loc + ar
+
+    def accumulate(o, m, l, kblk, vblk, mblk, i):
+        src = (my - i) % n  # the block currently held
+        scores = torch.einsum("bqhd,bkhd->bhqk", qf, kblk.float()) * sc
+        valid = mblk[:, None, None, :].bool()
+        if causal:
+            k_pos = src * s_loc + ar
+            valid = valid & (q_pos[:, None] >= k_pos[None, :])[None, None]
+        scores = torch.where(valid, scores, -math.inf)
+        new_m = torch.maximum(m, scores.amax(dim=-1))
+        # a row with no valid key so far keeps m = -inf; exp(-inf - -inf)
+        # would be NaN, so such rows contribute 0
+        safe_m = torch.where(torch.isfinite(new_m), new_m, 0.0)
+        corr = torch.where(torch.isfinite(m), torch.exp(m - safe_m), 0.0)
+        p = torch.where(torch.isfinite(scores), torch.exp(scores - safe_m[..., None]), 0.0)
+        l = l * corr + p.sum(dim=-1)
+        o = o * corr[..., None] + torch.einsum("bhqk,bkhd->bhqd", p, vblk.float())
+        return o, new_m, l
+
+    o = qf.new_zeros((b, h, s_loc, dh))
+    l = qf.new_zeros((b, h, s_loc))
+    m = torch.full_like(l, -math.inf)
+    mblk = kv_mask if kv_mask is not None else torch.ones((b, s_loc), dtype=torch.int32, device=q.device)
+    o, m, l = accumulate(o, m, l, k, v, mblk, 0)  # the local block
+    ring = [(j, (j + 1) % n) for j in range(n)]
+    kblk, vblk = k, v
+    for i in range(1, n):
+        kblk = spmd.ppermute(kblk, axis_name, ring)
+        vblk = spmd.ppermute(vblk, axis_name, ring)
+        mblk = spmd.ppermute(mblk, axis_name, ring)
+        o, m, l = accumulate(o, m, l, kblk, vblk, mblk, i)
+    out = o / torch.clamp(l[..., None], min=1e-30)
+    return out.transpose(1, 2).to(q.dtype)

@@ -29,11 +29,16 @@ Two choices differ from the JAX program, for the card:
   sum. A 10-bit mantissa would scramble the near-ties that the rescore
   exists to order.
 
-The list-sharded search waits for the multi-device slice.
+The list-sharded search (``shard_ivf_pq``, ``ivf_pq_search_sharded``)
+places whole routing lists on the shards of a mesh axis, each with a
+list-local copy of its rescore rows, runs probe -> ADC -> rescore on every
+shard over the probed lists it owns (``parallel/spmd.py``), and merges the
+shards' top-k. Only k slots and k scores a shard cross between devices.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -42,6 +47,8 @@ import torch
 from torch.profiler import record_function
 
 from pathway_tpu_torch.engine.device_plane import resolve_device
+from pathway_tpu_torch.parallel import spmd
+from pathway_tpu_torch.parallel.mesh import P, Sharded
 
 __all__ = [
     "ADC_CHUNK_BYTES",
@@ -65,11 +72,6 @@ __all__ = [
 
 # the ADC gather's transient memory for one chunk of probed lists
 ADC_CHUNK_BYTES = 256 << 20
-
-_SHARDED = (
-    "the list-sharded IVF-PQ search is not ported yet; it comes with the "
-    "multi-device slice (ROADMAP A9)"
-)
 
 
 class IvfPqArrays(NamedTuple):
@@ -602,19 +604,163 @@ def sub_arrays(index: IvfPqArrays, lists, codes=None) -> IvfPqArrays:
     )
 
 
-class ShardedIvfPq:
-    """The list-sharded layout: not ported yet (ROADMAP A9)."""
+class ShardedIvfPq(NamedTuple):
+    """The IVF-PQ layout sharded by routing list over a mesh axis.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_SHARDED)
+    Each shard holds L/shards whole lists: its block of the code cube, of
+    the validity and slot maps, and a list-local copy of the exact rescore
+    rows in cell layout (``cells[l, p] = full[slots[l, p]]``), so probe,
+    ADC scan and rescore never read another shard's memory. Centroids and
+    codebooks are small and replicated; ``slots`` keep global row ids, so
+    merged results read like the unsharded index's. Every array member is
+    a :class:`~pathway_tpu_torch.parallel.mesh.Sharded`."""
+
+    centroids: Sharded  # [Lp, d] f32, replicated (pad lists masked)
+    codes: Sharded  # [Lp, cap, m] uint8, sharded over `axis`
+    valid: Sharded  # [Lp, cap] bool, sharded
+    slots: Sharded  # [Lp, cap] int32 global row ids, sharded
+    codebooks: Sharded  # [m, 256, d/m] f32, replicated
+    cells: Sharded  # [Lp, cap, d] f32 list-local rescore rows, sharded
+    n_lists: int  # real (unpadded) list count
+    mesh: object
+    axis: str
 
 
-def shard_ivf_pq(index: IvfPqArrays, mesh, axis: str = "data"):
-    raise NotImplementedError(_SHARDED)
+def shard_ivf_pq(index: IvfPqArrays, mesh, axis: str = "data") -> ShardedIvfPq:
+    """Place an IvfPqArrays layout (numpy or tensors) onto `mesh`, sharded
+    by routing list over `axis`: the list dimension is padded to a
+    multiple of the shard count (pad lists are all-invalid and never
+    probed) and the rescore rows are laid out per list cell."""
+    s = mesh.shape[axis]
+    centroids = _to_numpy(index.centroids).astype(np.float32, copy=False)
+    codes = _to_numpy(index.codes)
+    valid = _to_numpy(index.valid).astype(bool, copy=False)
+    slots = _to_numpy(index.slots).astype(np.int32, copy=False)
+    full = _to_numpy(index.full).astype(np.float32, copy=False)
+    L, cap, m = codes.shape
+    d = centroids.shape[1]
+    if slots.size and int(slots.max()) >= full.shape[0]:
+        raise ValueError(
+            f"the cube names slot {int(slots.max())} but `full` has only {full.shape[0]} rows"
+        )
+    Lp = -(-L // s) * s
+    if Lp != L:
+        pad = Lp - L
+        centroids = np.concatenate([centroids, np.zeros((pad, d), np.float32)])
+        codes = np.concatenate([codes, np.zeros((pad, cap, m), np.uint8)])
+        valid = np.concatenate([valid, np.zeros((pad, cap), bool)])
+        slots = np.concatenate([slots, np.full((pad, cap), -1, np.int32)])
+    cells = np.zeros((Lp, cap, d), np.float32)
+    cells[valid] = full[slots[valid]]
+
+    def put(x: np.ndarray, spec) -> Sharded:
+        return Sharded.from_global(torch.from_numpy(np.ascontiguousarray(x)), mesh, spec)
+
+    return ShardedIvfPq(
+        centroids=put(centroids, P()),
+        codes=put(codes, P(axis, None, None)),
+        valid=put(valid, P(axis, None)),
+        slots=put(slots, P(axis, None)),
+        codebooks=put(_to_numpy(index.codebooks).astype(np.float32, copy=False), P()),
+        cells=put(cells, P(axis, None, None)),
+        n_lists=L,
+        mesh=mesh,
+        axis=axis,
+    )
 
 
-def ivf_pq_search_sharded(queries, sindex, k: int, **kwargs):
-    raise NotImplementedError(_SHARDED)
+def _sharded_search_fn(q, centroids, codes, valid, slots, codebooks, cells, *, k: int,
+                       nprobe: int, candidates: int, metric: str, n_lists: int, axis: str):
+    """One shard's probe -> ADC -> rescore over the probed lists it owns,
+    then the cross-shard merge of every shard's top-k. The probe is the
+    same computation on every shard (replicated query and centroids), so
+    all shards agree on the probed global lists."""
+    shard = spmd.axis_index(axis)
+    n_shards = spmd.axis_size(axis)
+    Ls, cap, m = codes.shape
+    B, d = q.shape
+    dsub = d // m
+    q = q.float()
+    if metric in ("cos", "cosine"):
+        q = q / torch.clamp(torch.linalg.vector_norm(q, dim=1, keepdim=True), min=1e-12)
+    csim = _f32_product(q, centroids.t())
+    if metric == "l2sq":
+        csim = -((q * q).sum(1, keepdim=True) - 2.0 * csim + (centroids * centroids).sum(1)[None, :])
+    csim[:, n_lists:] = -math.inf  # pad lists never win a probe slot
+    Pn = min(nprobe, n_lists)
+    probe = torch.topk(csim, Pn, dim=1).indices  # [B, Pn] global list ids
+    local_id = probe - shard * Ls
+    owned = (local_id >= 0) & (local_id < Ls)
+    lidx = local_id.clamp(0, Ls - 1)
+    qs = q.view(B, m, dsub)
+    lut = _f32_product(qs.transpose(0, 1), codebooks.transpose(1, 2)).transpose(0, 1)
+    if metric == "l2sq":
+        lut = -((qs * qs).sum(-1)[:, :, None] - 2.0 * lut + (codebooks * codebooks).sum(-1)[None, :, :])
+    adc = _adc_scores(lut.contiguous(), codes, lidx)
+    pvalid = (valid[lidx] & owned[:, :, None]).view(B, Pn * cap)
+    adc.masked_fill_(~pvalid, -math.inf)
+    c = min(candidates, Pn * cap)
+    cand = torch.topk(adc, c, dim=1).indices
+    cslots = slots[lidx].view(B, Pn * cap).gather(1, cand)
+    cvalid = pvalid.gather(1, cand)
+    # rescore rows from this shard's cell layout: (probed row, cell) ->
+    # its [Ls * cap, d] flat rows
+    cand_list = lidx.gather(1, cand // cap)
+    flat = cand_list * cap + cand % cap
+    rows = cells.view(Ls * cap, d).index_select(0, flat.view(-1)).view(B, c, d)
+    if metric == "l2sq":
+        exact = rows.sub_(q[:, None, :]).square_().sum(-1).neg_()
+    else:
+        exact = rows.mul_(q[:, None, :]).sum(-1)
+    del rows
+    exact.masked_fill_(~cvalid, -math.inf)
+    kk = min(k, c)
+    s_loc, pos = torch.topk(exact, kk, dim=1)
+    slots_loc = cslots.gather(1, pos)
+    # the merge: k slots and k scores of every shard
+    cand_s = torch.cat(list(spmd.all_gather(s_loc, axis)), dim=1)
+    cand_slots = torch.cat(list(spmd.all_gather(slots_loc, axis)), dim=1)
+    ms, mpos = torch.topk(cand_s, min(k, n_shards * kk), dim=1)
+    mslots = cand_slots.gather(1, mpos)
+    miss = ~torch.isfinite(ms)
+    dist = (ms.neg() if metric in ("l2sq", "dot") else 1.0 - ms).masked_fill_(miss, math.inf)
+    return mslots.masked_fill_(miss, -1).to(torch.int32), dist
+
+
+def ivf_pq_search_sharded(
+    queries,
+    sindex: ShardedIvfPq,
+    k: int,
+    *,
+    nprobe: int | None = None,
+    candidates: int | None = None,
+    metric: str = "cos",
+):
+    """Search a list-sharded index: each shard probes, scans and rescores
+    its own lists, and the shards' top-k merge. Returns (global slot ids
+    [B, k] int32, distances [B, k] f32) on the mesh's first device, with
+    `ivf_pq_search`'s -1/+inf empty ranks. Each shard rescores its own
+    top-`candidates`, a superset of the unsharded search's candidates
+    among its lists, so recall can only match or improve on it."""
+    L = sindex.n_lists
+    cap = sindex.codes.shape[1]
+    nprobe = nprobe or auto_nprobe(L)
+    candidates = candidates or max(auto_candidates(k), cap)
+    if not isinstance(queries, torch.Tensor):
+        queries = torch.from_numpy(np.asarray(queries, np.float32))
+    q = queries.float()
+    if q.ndim == 1:
+        q = q[None, :]
+    fn = spmd.shard_map(
+        functools.partial(
+            _sharded_search_fn, k=k, nprobe=min(nprobe, L), candidates=candidates,
+            metric="cos" if metric == "cosine" else metric, n_lists=L, axis=sindex.axis,
+        ),
+        sindex.mesh,
+        in_specs=(P(),) * 7,
+        out_specs=(P(), P()),
+    )
+    return fn(q, sindex.centroids, sindex.codes, sindex.valid, sindex.slots, sindex.codebooks, sindex.cells)
 
 
 def ivf_pq_search_host(

@@ -1,12 +1,16 @@
-"""Fused distance + top-k retrieval on one device.
+"""Fused distance + top-k retrieval.
 
-Counterpart of ``pathway_tpu/ops/topk.py`` (single-device half). Exact
+Counterpart of ``pathway_tpu/ops/topk.py``. Exact
 search is one bf16 product with f32 sums plus ``torch.topk``. Where the
 JAX package asks XLA for ``approx_max_k``, the port takes the exact
 ``torch.topk``: recall can only rise, and JAX on the CPU is exact too.
 ``torch.topk`` breaks ties in another order than ``lax.top_k``; callers
 that need a stable order re-sort by (score, key), as the slab index does.
-``make_knn_searcher`` closes over these, or over the IVF-PQ tier.
+``knn_search_sharded`` shards the doc rows over a mesh axis
+(``parallel/spmd.py``): a top-k on each shard, then an ``all_gather`` of
+every shard's k candidates and a merge into global row ids.
+``make_knn_searcher`` closes over these, or over the IVF-PQ tier (its
+list-sharded search with a mesh).
 """
 
 from __future__ import annotations
@@ -16,6 +20,8 @@ from typing import NamedTuple
 import torch
 
 from pathway_tpu_torch.ops.distances import dot_products, metric_fn, normalize
+from pathway_tpu_torch.parallel import spmd
+from pathway_tpu_torch.parallel.mesh import P
 
 
 class TopKResult(NamedTuple):
@@ -144,6 +150,43 @@ def knn_search_quantized(
     return TopKResult(indices=idx.to(torch.int32), distances=1.0 - s)
 
 
+def knn_search_sharded(
+    queries: torch.Tensor,
+    docs: torch.Tensor,
+    k: int,
+    metric: str = "cos",
+    mesh=None,
+    axis: str = "data",
+) -> TopKResult:
+    """Exact k-NN with the docs' rows sharded over `axis` of `mesh`: a
+    top-k on each shard, then every shard's candidates gathered and
+    merged. Returns global row indices (offsets into the unsharded doc
+    matrix) on the mesh's first device. `docs` may be a global tensor
+    (cut into views per shard) or a ``Sharded`` placement of it."""
+    if mesh is None:
+        return knn_search(queries, docs, k, metric)
+    n_shards = mesh.shape[axis]
+    n_docs = docs.shape[0]
+    if n_docs % n_shards != 0:
+        raise ValueError(f"doc count {n_docs} not divisible by {n_shards} shards")
+    shard_rows = n_docs // n_shards
+    kk = min(k, shard_rows)
+
+    def local(q: torch.Tensor, d_shard: torch.Tensor):
+        res = knn_search(q, d_shard, kk, metric)
+        gidx = res.indices + spmd.axis_index(axis) * shard_rows
+        # [q, shards * kk] candidates, the same on every shard
+        cand_d = torch.cat(list(spmd.all_gather(res.distances, axis)), dim=1)
+        cand_i = torch.cat(list(spmd.all_gather(gidx, axis)), dim=1)
+        neg, pos = torch.topk(-cand_d, min(k, n_shards * kk), dim=1)
+        return torch.gather(cand_i, 1, pos), -neg
+
+    idx, dists = spmd.shard_map(
+        local, mesh, in_specs=(P(), P(axis, None)), out_specs=(P(), P())
+    )(queries, docs)
+    return TopKResult(indices=idx, distances=dists)
+
+
 def make_knn_searcher(
     k: int,
     metric: str = "cos",
@@ -161,13 +204,12 @@ def make_knn_searcher(
     searches probe `nprobe` lists instead of scanning every row. The
     `PATHWAY_ANN` env var overrides either way: `0` forces the exact scan,
     `1` opts unlabeled call sites in; an explicit `ann=False` stays exact.
-    A `mesh` (the list-sharded search) waits for the multi-device slice.
+    With a `mesh`, the exact search shards the doc rows over its `axis`
+    (`knn_search_sharded`) and the ANN tier shards its routing lists over
+    it (`ops/ivf.py shard_ivf_pq` / `ivf_pq_search_sharded`): each shard
+    scans the probed part of its own lists and the merge moves k
+    candidates a shard.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "the mesh-sharded searcher is not ported yet; it comes with the "
-            "multi-device slice (ROADMAP A9)"
-        )
     from pathway_tpu_torch.indexing import ann_enabled
 
     use_ann = (
@@ -177,7 +219,7 @@ def make_knn_searcher(
     )
     if not use_ann:
         def search(queries: torch.Tensor, docs: torch.Tensor) -> TopKResult:
-            return knn_search(queries, docs, k, metric)
+            return knn_search_sharded(queries, docs, k, metric, mesh, axis)
 
         return search
 
@@ -212,13 +254,20 @@ def make_knn_searcher(
             for stale in [kk for kk, (r, _s, _i) in cache.items() if r() is None]:
                 del cache[stale]
             host = docs.detach().cpu().numpy()
-            index = _ivf.arrays_from_numpy(
-                _ivf.build_ivf_pq(host, metric=metric, device=docs.device), docs.device
-            )
+            index = _ivf.build_ivf_pq(host, metric=metric, device=docs.device)
+            if mesh is not None:
+                # one placement per trained index: lists sharded over the
+                # mesh axis, rescore rows laid out list-local per shard
+                index = _ivf.shard_ivf_pq(index, mesh, axis)
+            else:
+                index = _ivf.arrays_from_numpy(index, docs.device)
             cache[key] = (weakref.ref(docs), tuple(docs.shape), index)
             while len(cache) > cache_cap:
                 cache.popitem(last=False)
-        slots, dists = _ivf.ivf_pq_search(queries, index, k, nprobe=nprobe, metric=metric)
+        if mesh is not None:
+            slots, dists = _ivf.ivf_pq_search_sharded(queries, index, k, nprobe=nprobe, metric=metric)
+        else:
+            slots, dists = _ivf.ivf_pq_search(queries, index, k, nprobe=nprobe, metric=metric)
         return TopKResult(indices=slots, distances=dists)
 
     search_ann._cache = cache  # introspection seam (tests, debugging)

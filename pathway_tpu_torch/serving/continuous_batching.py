@@ -27,9 +27,20 @@ path; per request the two give the same tokens, because
 ``decode_step_slots`` is ``decode_step`` with the shared position made a
 per-row vector.
 
+**Mesh-spanning slot pools** (``mesh_span=True``, or
+``PATHWAY_MESH_SLOTS=1`` when it is None): the KV cache's slot axis is
+sharded over the ``data`` axis of ``parallel.mesh.default_mesh()`` (every
+CUDA device, or the shards ``PATHWAY_MESH_DEVICES`` names) and the pool
+grows to ``n_slots`` per shard. One scheduler drives every shard's
+slots: a prefill runs on the device of its slot's shard, and a decode
+step is one ``spmd.shard_map`` call in which each shard advances its own
+rows. Rows never read each other's slots, so per-request tokens equal
+the single-device pool's. A default mesh of one device keeps the
+single-device pool, as the JAX package does on one device; a mesh that
+cannot be built raises.
+
 Decoding here is greedy (argmax); sampled generation keeps the
-wave-aligned path. The mesh-spanning pool of the JAX package waits for
-the multi-device port: asking for it raises.
+wave-aligned path.
 """
 
 from __future__ import annotations
@@ -48,15 +59,23 @@ import torch
 from pathway_tpu_torch.engine.device_plane import get_device_plane
 from pathway_tpu_torch.internals import observability as _obs
 from pathway_tpu_torch.models import transformer
+from pathway_tpu_torch.parallel import spmd
+from pathway_tpu_torch.parallel.mesh import P, Sharded, default_mesh
 from pathway_tpu_torch.xpacks.llm.embedders import pad_left_rows
 
-__all__ = ["ContinuousBatcher", "continuous_batching_on"]
+__all__ = ["ContinuousBatcher", "continuous_batching_on", "mesh_slots_on"]
 
 
 def continuous_batching_on() -> bool:
     """PATHWAY_CONTINUOUS_BATCH=0 restores wave-aligned dispatch (default
     on)."""
     return os.environ.get("PATHWAY_CONTINUOUS_BATCH", "1") not in ("0", "false", "no")
+
+
+def mesh_slots_on() -> bool:
+    """PATHWAY_MESH_SLOTS=1 spans the slot pool over the device mesh
+    (default off: single-device pools)."""
+    return os.environ.get("PATHWAY_MESH_SLOTS", "0") == "1"
 
 
 class _Request:
@@ -96,16 +115,27 @@ class ContinuousBatcher:
         n_slots: int = 8,
         plane: Any = None,
         name: str | None = None,
-        mesh_span: bool = False,
+        mesh_span: bool | None = None,
     ):
         if n_steps < 1:
             raise ValueError("n_steps must be >= 1")
-        if mesh_span:
-            raise NotImplementedError("the mesh-spanning slot pool waits for the multi-device port")
         self.params = params
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.n_steps = n_steps
+        # mesh-spanning pool: n_slots per shard (module docstring)
+        self.mesh = None
+        if mesh_span if mesh_span is not None else mesh_slots_on():
+            mesh = default_mesh(("data",))
+            if mesh.size > 1:
+                self.mesh = mesh
+                self.shard_slots = n_slots
+                n_slots = n_slots * mesh.size
+                # the parameters on every shard's device (shards of one
+                # device share them)
+                self._mesh_params = transformer.tree_map(
+                    lambda t: Sharded.from_global(t, mesh, P(), copy=False), params
+                )
         self.n_slots = n_slots
         # every write stays inside the cache: a prompt keeps its last
         # `budget` tokens, and its last decode write lands at
@@ -118,9 +148,10 @@ class ContinuousBatcher:
         self._prefill = self._plane.program(
             f"{self.name}/prefill", functools.partial(transformer.prefill_into_slot, cfg=cfg)
         )
-        self._step = self._plane.program(
-            f"{self.name}/step", functools.partial(transformer.decode_step_slots, cfg=cfg)
-        )
+        step = functools.partial(transformer.decode_step_slots, cfg=cfg)
+        if self.mesh is not None:
+            step = self._mesh_step_fn(step)
+        self._step = self._plane.program(f"{self.name}/step", step)
         self._cache_key = ("cb_kv_cache", self.name, n_slots)
         self._lock = threading.Lock()
         self._queue: deque[_Request] = deque()
@@ -164,11 +195,37 @@ class ContinuousBatcher:
 
     # ---------------------------------------------------------- decode loop
 
-    def _loop(self) -> None:
-        cache = self._plane.lease(
-            self._cache_key,
-            lambda: transformer.init_kv_cache(self.cfg, self.n_slots, self.device),
+    def _mesh_step_fn(self, step):
+        """The decode step over the mesh: each shard advances its own
+        cache rows with its rows of the step vectors; the next tokens
+        come back as one [n_slots] tensor."""
+        rows = P("data")
+        mapped = spmd.shard_map(
+            lambda params, cache, tok, pos, pad: step(params, cache, tok, pos, pad)[0],
+            self.mesh, in_specs=(P(), P(None, "data"), rows, rows, rows), out_specs=rows,
         )
+
+        def run(params, cache, tok, pos, pad):
+            return mapped(self._mesh_params, cache, tok, pos, pad), cache
+
+        return run
+
+    def _init_cache(self) -> Any:
+        """A fresh multi-slot cache: one tensor on the batcher's device,
+        or with a mesh one block of `shard_slots` rows on each shard's
+        device (a dict of Sharded)."""
+        if self.mesh is None:
+            return transformer.init_kv_cache(self.cfg, self.n_slots, self.device)
+        shards = [transformer.init_kv_cache(self.cfg, self.shard_slots, self.mesh.device(i))
+                  for i in range(self.mesh.size)]
+        full = (self.cfg.n_layers, self.n_slots, self.cfg.n_heads, self.cfg.max_len, self.cfg.head_dim)
+        return {
+            name: Sharded([c[name] for c in shards], P(None, "data"), self.mesh, full)
+            for name in ("k", "v")
+        }
+
+    def _loop(self) -> None:
+        cache = self._plane.lease(self._cache_key, self._init_cache)
         try:
             with torch.no_grad():
                 self._run(cache)
@@ -252,10 +309,17 @@ class ContinuousBatcher:
         ids, mask = pad_left_rows([req.row], self.budget, n_rows=1)
         req.width = ids.shape[1]
         req.pad_len = req.width - req.length
+        params, dev, row = self.params, self.device, slot
+        if self.mesh is not None:
+            # the prefill runs on the device of the slot's shard, into
+            # that shard's block of the cache
+            shard, row = divmod(slot, self.shard_slots)
+            dev = self.mesh.device(shard)
+            params = transformer.tree_map(lambda t: t.shards[shard], self._mesh_params)
+            cache = {name: c.shards[shard] for name, c in cache.items()}
         first, _ = self._prefill(
-            self.params, torch.from_numpy(ids).to(self.device),
-            torch.from_numpy(mask).to(self.device), cache, torch.tensor(slot),
-            bucket=(1, req.width),
+            params, torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev), cache,
+            torch.tensor(row), bucket=(1, req.width),
         )
         req.token = int(first[0])
         self.stats["prefill_seconds"] += time.perf_counter() - t0

@@ -219,13 +219,17 @@ def test_arrays_from_numpy_checks_full_covers_the_slots():
 
 
 def test_sharded_search_waits_for_the_multi_device_slice():
+    """The multi-device slice has landed: the list-sharded search runs over
+    a mesh of 4 CPU shards and finds what the unsharded search finds
+    (tests/test_torch_sharded.py holds it to the JAX package)."""
+    from pathway_tpu_torch.parallel.mesh import make_mesh
+
     arrays, q = _search_case("cos")
-    with pytest.raises(NotImplementedError, match="A9"):
-        tivf.shard_ivf_pq(arrays, mesh=None)
-    with pytest.raises(NotImplementedError, match="A9"):
-        tivf.ivf_pq_search_sharded(q, None, 10)
-    with pytest.raises(NotImplementedError, match="A9"):
-        make_knn_searcher(10, mesh=object())
+    mesh = make_mesh((4,), ("data",), ["cpu"] * 4)
+    slots, dists = tivf.ivf_pq_search_sharded(q, tivf.shard_ivf_pq(arrays, mesh), 10)
+    want, _ = tivf.ivf_pq_search(q, tivf.arrays_from_numpy(arrays, "cpu"), 10)
+    assert torch.equal(slots[:, 0], want[:, 0]) and torch.isfinite(dists).all()
+    assert make_knn_searcher(10, mesh=mesh) is not None
 
 
 # -------------------------------------------------------------- reranker
@@ -646,8 +650,8 @@ def test_default_device_needs_a_card_and_later_slices_raise(monkeypatch):
     # the tiers are ported: budgets and PATHWAY_ANN_TIERED=1 opt in, =0 vetoes
     assert IvfPqIndex(dimensions=8, device="cpu", tiered=True)._tiered
     assert IvfPqIndex(dimensions=8, device="cpu", hot_lists=4)._tiered
-    with pytest.raises(NotImplementedError, match="sharded"):
-        IvfPqIndex(dimensions=8, device="cpu", sharded=True)
+    # the sharded search is ported: the flag and PATHWAY_ANN_SHARDED=1 opt in
+    assert IvfPqIndex(dimensions=8, device="cpu", sharded=True)._shard_search
     monkeypatch.setenv("PATHWAY_ANN_TIERED", "1")
     assert IvfPqIndex(dimensions=8, device="cpu")._tiered
     monkeypatch.setenv("PATHWAY_ANN_TIERED", "0")  # vetoes the budgets
@@ -655,8 +659,7 @@ def test_default_device_needs_a_card_and_later_slices_raise(monkeypatch):
     assert not vetoed._tiered and vetoed.stats()["lists"] == 0
     monkeypatch.delenv("PATHWAY_ANN_TIERED")
     monkeypatch.setenv("PATHWAY_ANN_SHARDED", "1")
-    with pytest.raises(NotImplementedError, match="sharded"):
-        IvfPqIndex(dimensions=8, device="cpu")
+    assert IvfPqIndex(dimensions=8, device="cpu")._shard_search
     # approx=True is served by the exact top-k (ROADMAP C2)
     assert VectorSlabIndex(dimensions=8, device="cpu", approx=True).approx
 

@@ -20,6 +20,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 import pathway_tpu as jpw
 import pathway_tpu.engine.core as jcore
@@ -415,17 +416,27 @@ def test_native_build_is_safe_under_concurrent_first_use(tmp_path):
 
 
 def test_exchange_hooks_keep_the_host_wire(monkeypatch):
+    """Auto on a machine without two CUDA devices and "0" take the host
+    wire; "1" builds the mesh exchangers, and raises when there is no
+    mesh to build (the JAX package returns None there)."""
     from pathway_tpu_torch.parallel import column_plane, device_exchange
 
+    monkeypatch.setattr(device_exchange, "_ENGINE_EXCHANGER", None)
+    monkeypatch.setattr(column_plane, "_ENGINE_EXCHANGER", None)
+    monkeypatch.delenv("PATHWAY_MESH_DEVICES", raising=False)
     monkeypatch.delenv("PATHWAY_DEVICE_EXCHANGE", raising=False)
     assert device_exchange.engine_exchanger() is None
     assert column_plane.engine_column_exchanger() is None
     monkeypatch.setenv("PATHWAY_DEVICE_EXCHANGE", "0")
     assert device_exchange.engine_exchanger() is None
     monkeypatch.setenv("PATHWAY_DEVICE_EXCHANGE", "1")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for hook in (device_exchange.engine_exchanger, column_plane.engine_column_exchanger):
-        with pytest.raises(NotImplementedError, match="A9"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
             hook()
+    monkeypatch.setenv("PATHWAY_MESH_DEVICES", "cpu*2")
+    assert device_exchange.engine_exchanger().mesh.size == 2
+    assert column_plane.engine_column_exchanger().mesh.size == 2
 
 
 def test_metrics_export_slot_pool_and_index_gauges(monkeypatch):

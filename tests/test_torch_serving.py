@@ -180,10 +180,16 @@ def test_config_guards():
     with pytest.raises(ValueError, match="max_new_tokens"):
         _chat(max_new_tokens=64)
     chat = _chat()
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        ContinuousBatcher(
-            params=chat.params, cfg=chat.config, tokenizer=chat.tokenizer, n_steps=4, mesh_span=True
-        )
+    # the mesh-spanning pool needs a mesh: none without a card or
+    # PATHWAY_MESH_DEVICES, and that raises (tests/test_torch_sharded.py
+    # drives the pool over 8 CPU shards)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.delenv("PATHWAY_MESH_DEVICES", raising=False)
+        mp.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ContinuousBatcher(
+                params=chat.params, cfg=chat.config, tokenizer=chat.tokenizer, n_steps=4, mesh_span=True
+            )
     with pytest.raises(ValueError, match="n_steps"):
         ContinuousBatcher(params=chat.params, cfg=chat.config, tokenizer=chat.tokenizer, n_steps=0)
 

@@ -255,7 +255,8 @@ def test_port_source_scan_covers_the_host_engine():
                  "stdlib/indexing/nearest_neighbors.py", "parallel/process_mesh.py",
                  "parallel/membership.py", "parallel/supervisor.py", "parallel/bluegreen.py", "cli.py",
                  "__main__.py", "stdlib/graphs/__init__.py", "stdlib/ml/index.py", "stdlib/ml/classifiers.py",
-                 "stdlib/stateful/__init__.py", "stdlib/statistical/__init__.py", "stdlib/viz/table_viz.py"):
+                 "stdlib/stateful/__init__.py", "stdlib/statistical/__init__.py", "stdlib/viz/table_viz.py",
+                 "parallel/mesh.py", "parallel/spmd.py", "parallel/exchange.py", "ops/segment.py"):
         assert f"pathway_tpu_torch/{name}" in rel, name
 
 
@@ -287,7 +288,10 @@ def test_importing_the_port_loads_no_jax():
         "pathway_tpu_torch.engine.native.dataplane, pathway_tpu_torch.indexing.tiers, "
         "pathway_tpu_torch.cli, pathway_tpu_torch.parallel.membership, pathway_tpu_torch.parallel.supervisor, "
         "pathway_tpu_torch.parallel.bluegreen, pathway_tpu_torch.stdlib.ml.index, "
-        "pathway_tpu_torch.stdlib.viz.plotting\n"
+        "pathway_tpu_torch.stdlib.viz.plotting, pathway_tpu_torch.parallel.mesh, "
+        "pathway_tpu_torch.parallel.spmd, pathway_tpu_torch.parallel.exchange, "
+        "pathway_tpu_torch.parallel.device_exchange, pathway_tpu_torch.parallel.column_plane, "
+        "pathway_tpu_torch.ops.segment\n"
         "import pathway_tpu_torch as pw\n"
         "assert all(hasattr(pw, n) for n in ('Table', 'run', 'io', 'udf', 'debug', 'UDF', 'graphs', 'ml', "
         "'stateful', 'statistical', 'viz'))\n"

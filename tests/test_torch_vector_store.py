@@ -375,8 +375,8 @@ def test_transformer_config_fields_match_the_jax_package():
     cfg = ttfm.embedder_config(fused_attention=False)
     assert cfg.fused_attention is False and cfg.seq_axis is None
     assert dataclasses.replace(cfg, fused_attention=True).fused_attention
-    with pytest.raises(NotImplementedError, match="A9"):
-        ttfm.embedder_config(seq_axis="seq")
+    # sequence parallelism is ported (tests/test_torch_train.py runs it)
+    assert ttfm.embedder_config(seq_axis="seq").seq_axis == "seq"
 
 
 @pytest.mark.parametrize("fused", [True, False])
