@@ -4,8 +4,10 @@
     python3 chip_smoke.py
 
 Builds the port's hand-written kernels from ``pathway_tpu_torch/csrc``,
-holds each against its plain PyTorch version on the card (timed at the main
-path's two shapes, checked at every tiling and at ragged lengths), then drives the
+holds each against its plain PyTorch version on the card (the attention
+kernel timed at the main paths' shapes in bf16 and f32, checked at every
+tiling, at ragged lengths, at sequences up to 2048, at every head width and
+in f16), then drives the
 live-RAG embed -> index -> retrieve path at the flagship encoder's full
 width (vocab 32768, d_model 384, 6 heads, 6 layers, d_ff 1536, seq 64,
 embed_dim 384; random weights from a seed): 1,048,576 docs encoded in
@@ -15,15 +17,21 @@ coalesced), self-retrieval over the 1M-doc slab, exact and int8 search
 timed. The approximate tier follows: bench.py's 1M x 64 ANN corpus built
 into an IVF-PQ index and searched at bench.py's operating point (against
 exact search and the numpy oracle, split by stage against its bound), then
-``IvfPqIndex`` over a quarter million flagship-width rows (retrain, search,
+``IvfPqIndex`` over 34,897 flagship-width rows (retrain, search,
 churn in waves, the reranked nprobe-1 wrapper), and the same index with
-its lists in RAM/disk tiers over 65,536 of those rows (the hot route on
+its lists in RAM/disk tiers over 32,768 of those rows (the hot route on
 the card, cold lists read from disk, churn, the tier contract). Between
 the RAG phases and the approximate tier, ``VectorStoreServer`` serves the
 texts over REST with its default embedder, held to a direct slab search,
-and ``EncoderReranker`` is held to the CPU; then ``python -m
+and ``EncoderReranker`` is held to the CPU; before them, ``long_embed``
+streams 16,384 documents of the repo's texts through ``DocumentStore``
+with the default ``TokenCountSplitter()`` (chunks of up to 500 tokens)
+and the JAX package's default encoder width (``TransformerConfig()``: d
+512, 8 heads, 6 layers, max_len 512) into the s 256 and s 512 buckets,
+held to a direct slab, and that encoder at f32 is held to the plain
+route and the CPU; then ``python -m
 pathway_tpu_torch spawn -n 1`` and ``-n 2`` run an ingest pipeline over
-131,072 documents, each process embedding its share with the default
+16,384 documents, each process embedding its share with the default
 embedder on the card, the two runs held to each other. After the tiers,
 ``pw.ml.index.KNNIndex`` answers 256 queries over the tiered rows in one
 run, held to a direct slab search. Then it generates with bench.py's
@@ -57,6 +65,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -78,36 +87,61 @@ FLAGSHIP = dict(
 N_DOCS = 1 << 20  # the 1M-doc scale of the KNN target
 DOC_BATCH, DOC_SEQ = 16384, 64  # bench.py's encoder batch
 N_QUERIES, TOP_K = 16, 10
-# (label, b, s, d, n_heads), timed: the flagship encoder's embed batch, the
-# default TorchEmbedder's widest bucket and the bucket its RAG phases fill
-# (s 32: documents and questions of at most 32 tokens), and the flagship
-# width at the short buckets (s 16 and 32) that the texts phase's chunks
-# fall into
+# (label, b, s, d, n_heads, dtype), timed: the flagship encoder's embed
+# batch, the default TorchEmbedder's widest bucket and the bucket its RAG
+# phases fill (s 32: documents and questions of at most 32 tokens), and the
+# flagship width at the short buckets (s 16 and 32) that the texts phase's
+# chunks fall into; then the JAX package's default encoder width
+# (TransformerConfig(): d 512, 8 heads) at the s 512 and s 256 buckets that
+# long_embed's 500-token chunks fill (b 1024 at s 512: the plain version's
+# f32 scores are 8.6 GB), the flagship at f32, and head_dim 128
 ATTENTION_SHAPES = [
-    ("flagship", 16384, 64, 384, 6),
-    ("embedder_default", 4096, 128, 256, 8),
-    ("embedder_default_s32", 4096, 32, 256, 8),
-    ("flagship_s32", 16384, 32, 384, 6),
-    ("flagship_s16", 16384, 16, 384, 6),
+    ("flagship", 16384, 64, 384, 6, "bf16"),
+    ("embedder_default", 4096, 128, 256, 8, "bf16"),
+    ("embedder_default_s32", 4096, 32, 256, 8, "bf16"),
+    ("flagship_s32", 16384, 32, 384, 6, "bf16"),
+    ("flagship_s16", 16384, 16, 384, 6, "bf16"),
+    ("long_s512", 1024, 512, 512, 8, "bf16"),
+    ("long_s256", 2048, 256, 512, 8, "bf16"),
+    ("flagship_f32", 16384, 64, 384, 6, "f32"),
+    ("dh128", 4096, 128, 1024, 8, "bf16"),
 ]
-# checked, not timed: the other tilings of the kernel (s 16 and 32 with a
-# batch that is not a multiple of 4, s 128 at dh 64 is its largest tile) and
-# ragged s at both head dims
+# checked, not timed: the other tilings of the short kernel (s 16 and 32
+# with a batch that is not a multiple of 4, s 128 at dh 64 is its largest
+# tile) and ragged s at both of its head dims; then the tiled kernel:
+# sequences past 128 (one key past a tile, ragged, and long), every
+# instantiated head width and one that zero-pads (dh 8 into 16), f16 at a
+# ragged s, and f32 at s 512
 ATTENTION_CHECK_SHAPES = [
-    ("s16_dh64", 4097, 16, 384, 6),
-    ("s32_dh64", 4097, 32, 384, 6),
-    ("s128_dh64", 2048, 128, 384, 6),
-    ("s40_dh64", 2048, 40, 384, 6),
-    ("s40_dh32", 2048, 40, 256, 8),
-    ("s100_dh64", 2048, 100, 384, 6),
-    ("s100_dh32", 2048, 100, 256, 8),
+    ("s16_dh64", 4097, 16, 384, 6, "bf16"),
+    ("s32_dh64", 4097, 32, 384, 6, "bf16"),
+    ("s128_dh64", 2048, 128, 384, 6, "bf16"),
+    ("s40_dh64", 2048, 40, 384, 6, "bf16"),
+    ("s40_dh32", 2048, 40, 256, 8, "bf16"),
+    ("s100_dh64", 2048, 100, 384, 6, "bf16"),
+    ("s100_dh32", 2048, 100, 256, 8, "bf16"),
+    ("s129", 64, 129, 512, 8, "bf16"),
+    ("s200", 64, 200, 512, 8, "bf16"),
+    ("s1000", 16, 1000, 512, 8, "bf16"),
+    ("s2048", 8, 2048, 512, 8, "bf16"),
+    ("dh8", 512, 100, 64, 8, "bf16"),
+    ("dh16", 512, 100, 128, 8, "bf16"),
+    ("dh96", 512, 200, 768, 8, "bf16"),
+    ("dh256", 256, 300, 512, 2, "bf16"),
+    ("f16_s77", 2048, 77, 384, 6, "f16"),
+    ("f16_s300", 128, 300, 512, 8, "f16"),
+    ("f32_s512", 128, 512, 512, 8, "f32"),
 ]
 # every shape is checked on this many seeded inputs, the first one timed
 ATTENTION_SEEDS = 3
-# kernel vs plain: the same bf16 inputs and f32 sums; a sum in another
-# order can flip one bf16 rounding of a probability or of ctx, so the
-# bound is one bf16 ulp at |ctx| < 8 (unit-normal qkv keeps |ctx| < 8)
+# kernel vs plain: the same bf16 (f16) inputs and f32 sums; a sum in
+# another order can flip one bf16 rounding of a probability or of ctx, so
+# the bound is one bf16 ulp at |ctx| < 8 (unit-normal qkv keeps |ctx| < 8)
 ATTENTION_ATOL = 2.0**-5
+# at f32, against the plain version at f32 with TF32 off: the kernel's
+# 3xTF32 products leave ~2^-22 of each product out and sum in another
+# order (at most 9.3e-6 read, at s 512)
+ATTENTION_F32_ATOL = 1e-5
 TEXT_FILES = ["docs/*.md", "SURVEY.md", "PAPER.md", "VERDICT.md", "BASELINE.md"]
 
 # the host engine: bench.py's wordcount rung (WORDCOUNT_ROWS, bench.py:50;
@@ -122,7 +156,25 @@ EMBEDDER_DEFAULT = dict(
 RAG_DOCS, RAG_QUESTIONS, RAG_WAVES, RAG_SEED, RAG_TOPK, RAG_NEW = 512, 128, 8, 4, 4, 32
 # a live document store at a deployment's size: documents drawn from the
 # texts phase's chunks, streamed in waves, then questions retrieved
-INGEST_DOCS, INGEST_WAVES, INGEST_QUESTIONS, INGEST_K = 131_072, 16, 64, 4
+INGEST_DOCS, INGEST_WAVES, INGEST_QUESTIONS, INGEST_K = 65_536, 16, 64, 4
+# long_embed: the JAX package's own encoder defaults (TransformerConfig(),
+# pathway_tpu/models/transformer.py:40-58, through embedder_config; embed_dim
+# 512) behind the default TokenCountSplitter() (50 to 500 tokens): what a RAG
+# user with 500-token chunks runs, and the width at which the JAX package's
+# Pallas kernel runs at the s 256 and s 512 buckets. Documents are windows of
+# the repo's texts, in waves that alternate short documents (one chunk of at
+# most 256 tokens) and long ones (chunks of up to 500 words, the s 512 bucket)
+LONG_EMBEDDER = dict(
+    vocab_size=32768, d_model=512, n_heads=8, n_layers=6, d_ff=2048, max_len=512, embed_dim=512,
+)
+LONG_DOCS, LONG_WAVES, LONG_QUESTIONS, LONG_K = 16_384, 8, 64, 4
+LONG_SHORT_WORDS, LONG_LONG_WORDS = (40, 120), (300, 900)
+# the same encoder at f32 through the kernel: LONG_F32_CHUNKS of the
+# store's chunks against the plain attention route on the card, and
+# LONG_F32_CPU_CHUNKS of them against the CPU forward (at f32 the CPU takes
+# ~0.27 s a 512-token chunk on 8 cores; all 1,024 would take minutes); unit
+# vectors, f32 sums in another order
+LONG_F32_CHUNKS, LONG_F32_CPU_CHUNKS, LONG_F32_ATOL = 1024, 64, 1e-4
 # engine vs direct build: the engine embeds each chunk in another wave
 # (another row mix and sequence bucket) than the direct build, so the
 # same chunk's bf16 embedding may differ by a few bf16 ulps, and its
@@ -135,17 +187,19 @@ ANN_ROWS, ANN_DIM, ANN_SEED = 1_000_000, 64, 7
 ANN_BATCH, ANN_K, ANN_NPROBE, ANN_CANDIDATES = 32, 10, 16, 1024
 ANN_FRONTIER = (4, 16, 64)  # bench.py's bench_ann_frontier
 ANN_MIN_RECALL = 0.93  # the JAX package's 1-CPU run recorded 0.941 on these bytes
-# the incremental index runs over a quarter of the slab's random-token rows
-# plus all its text rows: its host retrain took 193-312 s over all 1,050,705
-# rows and 187-267 s over half of them, the larger part of the script's time
-ANN_INDEX_DOCS = N_DOCS // 4
+# the incremental index runs over 1/32 of the slab's random-token rows plus
+# all its text rows: its host retrain took 193-312 s over all 1,050,705
+# rows, 187-267 s over half of them, 116-151 s over a quarter and 130 s over
+# an eighth (its PQ codebooks train on at most 131,072 rows), the larger
+# part of the script's time
+ANN_INDEX_DOCS = N_DOCS // 32
 # churn of the incremental index: waves of removes and fresh adds, a search after each
 CHURN_WAVES, CHURN_WAVE = 16, 256
-# the tiered index: the same rows cut to 65,536 (all text rows, the rest
-# random-token rows): its host numpy retrain took 149 s at 131,072 rows on
-# the 8 host CPUs of an H100 machine; m 48 as the flagship width's
-# auto_subvectors; 4 churn waves, a rebalance after each
-TIERED_ROWS, TIERED_SUBVECTORS, TIERED_CHURN_WAVES = 65_536, 48, 4
+# the tiered index: the same rows cut to 32,768 (all text rows, the rest
+# random-token rows): its host numpy retrain took 149 s at 131,072 rows and
+# 41-48 s at 65,536 on the 8 host CPUs of an H100 machine; m 48 as the
+# flagship width's auto_subvectors; 4 churn waves, a rebalance after each
+TIERED_ROWS, TIERED_SUBVECTORS, TIERED_CHURN_WAVES = 32_768, 48, 4
 # the vector store: the texts phase's chunks behind VectorStoreServer's
 # default embedder, 32 REST queries at k 4
 VS_QUERIES, VS_K = 32, 4
@@ -176,7 +230,8 @@ MESH_KNN_ATOL = 1e-5
 # mesh_exchange: the skewed mix sends half of the rows to shard 0; the
 # engine groupby of tests/test_rescale_exchange.py at a deployment's size
 EXCHANGE_SKEW = 0.5
-GROUPBY_ROWS, GROUPBY_GROUPS = 131_072, 64
+# (131,072 groupby rows before long_embed joined the script; halved for its time)
+GROUPBY_ROWS, GROUPBY_GROUPS = 65_536, 64
 # mesh_tp over (data 2, model 2): bf16 activations round at other points
 # than the unsharded forward's (f32 partial sums added across the model
 # shards, then rounded once), so unit-norm embeddings within 2^-6 and the
@@ -218,22 +273,25 @@ def gpu_name_and_power() -> str:
     return out.splitlines()[0]
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Median device time of one call, over `reps` calls timed one by one
-    with CUDA events, after one warm-up call."""
+def cuda_ms(fn, reps: int, rounds: int = 3) -> float:
+    """Device time of one call: CUDA events around `reps` calls launched
+    back to back, over the count, after one warm-up call; the median of
+    `rounds` such runs. (Timing each call alone adds the host's launch
+    latency to a kernel of a tenth of a ms.)"""
     import torch
 
     fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(rounds):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -252,13 +310,15 @@ def host_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def attention_bound(b: int, s: int, d: int, h: int) -> tuple[float, str, int, int]:
+def attention_bound(b: int, s: int, d: int, h: int, dtype: str = "bf16") -> tuple[float, str, int, int]:
     """Least time the card could take for the kernel's work, in ms: qkv
-    and the mask read once, ctx written once, over the HBM rate; against
-    4*b*h*s*s*dh flops (q.k^T and p.v) over the bf16 tensor-core rate."""
-    nbytes = b * s * 3 * d * 2 + b * s * 4 + b * s * d * 2
+    and the mask read once, ctx written once (2 or 4 bytes an element),
+    over the HBM rate; against 4*b*h*s*s*dh flops (q.k^T and p.v) over the
+    bf16 and f16 tensor-core rate, or the f32 rate at f32."""
+    esize = 4 if dtype == "f32" else 2
+    nbytes = b * s * 3 * d * esize + b * s * 4 + b * s * d * esize
     flops = 4 * b * h * s * s * (d // h)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / (F32_FLOPS if dtype == "f32" else BF16_FLOPS)
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
     return max(t_bytes, t_ops) * 1e3, bound_by, nbytes, flops
 
@@ -266,24 +326,30 @@ def attention_bound(b: int, s: int, d: int, h: int) -> tuple[float, str, int, in
 # ------------------------------------------------------------ phase 1
 
 
-def attention_case(b: int, s: int, d: int, seed: int):
-    """Seeded unit-normal bf16 qkv and a mask with random lengths, every
-    97th row all padding (as bucket padding makes)."""
+TORCH_DTYPES = {"bf16": "bfloat16", "f16": "float16", "f32": "float32"}
+# the words of pathway_tpu_torch/models/tokenizer.py's HashTokenizer
+WORD_RE = re.compile(r"[a-z0-9]+", re.IGNORECASE)
+
+
+def attention_case(b: int, s: int, d: int, seed: int, dtype: str = "bf16"):
+    """Seeded unit-normal qkv in `dtype` and a mask with random lengths,
+    every 97th row all padding (as bucket padding makes)."""
     import torch
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
-    qkv = torch.randn((b, s, 3 * d), generator=gen, device=dev).to(torch.bfloat16)
+    qkv = torch.randn((b, s, 3 * d), generator=gen, device=dev).to(getattr(torch, TORCH_DTYPES[dtype]))
     lens = torch.randint(1, s + 1, (b,), generator=gen, device=dev)
     lens[::97] = 0
     mask = (torch.arange(s, device=dev)[None, :] < lens[:, None]).to(torch.int32)
     return qkv, mask, lens
 
 
-def check_attention(label: str, b: int, s: int, d: int, h: int, seed: int, timed: bool) -> dict:
-    """The kernel against its plain version on ATTENTION_SEEDS seeded bf16
-    inputs with random padding and all-padding rows; with `timed`, also the
-    times of the kernel, the plain version and SDPA on the first."""
+def check_attention(label: str, b: int, s: int, d: int, h: int, dtype: str, seed: int, timed: bool) -> dict:
+    """The kernel against its plain version on ATTENTION_SEEDS seeded
+    inputs in `dtype` with random padding and all-padding rows; with
+    `timed`, also the times of the kernel, the plain version and SDPA on
+    the first."""
     import torch
     import torch.nn.functional as F
 
@@ -291,7 +357,7 @@ def check_attention(label: str, b: int, s: int, d: int, h: int, seed: int, timed
 
     errs, pad_errs, finite, ref_max, n_pad = [], [], True, 0.0, 0
     for i in range(ATTENTION_SEEDS):
-        qkv, mask, lens = attention_case(b, s, d, seed + 1000 * i)
+        qkv, mask, lens = attention_case(b, s, d, seed + 1000 * i, dtype)
         out = fused_qkv_attention(qkv, mask, h)
         torch.cuda.synchronize()
         ref = reference_attention(qkv, mask, h)
@@ -305,15 +371,16 @@ def check_attention(label: str, b: int, s: int, d: int, h: int, seed: int, timed
         n_pad += int(pad_rows.numel())
         del qkv, mask, out, ref
     err, pad_err = max(errs), max(pad_errs)
+    atol = ATTENTION_F32_ATOL if dtype == "f32" else ATTENTION_ATOL
 
     row = dict(
         phase="attention" if timed else "attention_check", shape=label, b=b, s=s, d=d,
-        n_heads=h, max_abs_err=err, max_abs_err_by_seed=errs, atol=ATTENTION_ATOL,
+        n_heads=h, dtype=dtype, max_abs_err=err, max_abs_err_by_seed=errs, atol=atol,
         finite=finite, all_padding_rows=n_pad, all_padding_err=pad_err,
     )
     if timed:
         # timed on the first seed's inputs
-        qkv, mask, _ = attention_case(b, s, d, seed)
+        qkv, mask, _ = attention_case(b, s, d, seed, dtype)
         ref = reference_attention(qkv, mask, h)
         # one PyTorch call for the same function, timed as a yardstick only
         q, k, v = (t.transpose(1, 2) for t in qkv.view(b, s, 3, h, d // h).unbind(2))
@@ -327,7 +394,7 @@ def check_attention(label: str, b: int, s: int, d: int, h: int, seed: int, timed
         ms = cuda_ms(lambda: fused_qkv_attention(qkv, mask, h), 30)
         plain_ms = cuda_ms(lambda: reference_attention(qkv, mask, h), 20)
         library_ms = cuda_ms(library, 20)
-        bound_ms, bound_by, nbytes, flops = attention_bound(b, s, d, h)
+        bound_ms, bound_by, nbytes, flops = attention_bound(b, s, d, h, dtype)
         row.update(
             library_err=lib_err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
             bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops,
@@ -335,7 +402,7 @@ def check_attention(label: str, b: int, s: int, d: int, h: int, seed: int, timed
         )
         del qkv, mask, ref, q, k, v, bias
     emit(row)
-    if not finite or ref_max >= 8 or err > ATTENTION_ATOL or pad_err > ATTENTION_ATOL:
+    if not finite or ref_max >= 8 or err > atol or pad_err > atol:
         raise AssertionError(f"attention kernel disagrees with its plain version: {row}")
     torch.cuda.empty_cache()
     return row
@@ -813,15 +880,36 @@ def ingest_corpus(texts: list[str], n_docs: int, seed: int) -> list[str]:
     return [f"{texts[j]} doc{i:07d}" for i, j in enumerate(pick)]
 
 
+def long_corpus(texts: list[str], n_docs: int, waves: int, seed: int) -> list[str]:
+    """`n_docs` documents cut from the repo's texts as word windows, each
+    made unique by an id token of its own: even waves LONG_SHORT_WORDS
+    words long, odd waves LONG_LONG_WORDS."""
+    import numpy as np
+
+    words = " ".join(texts).split()
+    rng = np.random.default_rng(seed)
+    per_wave = -(-n_docs // waves)
+    docs = []
+    for i in range(n_docs):
+        lo, hi = LONG_LONG_WORDS if (i // per_wave) % 2 else LONG_SHORT_WORDS
+        n = int(rng.integers(lo, hi + 1))
+        start = int(rng.integers(0, len(words) - n))
+        docs.append(" ".join(words[start:start + n]) + f" doc{i:07d}")
+    return docs
+
+
 def run_rag_ingest(device, emb_kw: dict, texts: list[str], *, n_docs: int, waves: int,
-                   n_q: int, k: int) -> dict:
+                   n_q: int, k: int, phase: str = "rag_ingest", docs: list[str] | None = None,
+                   splitter_kw: dict | None = None, keep_chunks: list | None = None) -> dict:
     """A live document store at a deployment's size: `n_docs` documents
-    streamed in `waves` waves into DocumentStore with the app's
-    TokenCountSplitter(50, 250) and the default TorchEmbedder, then `n_q`
-    questions retrieved with `k`. Held to (i) a direct split of the same
-    documents and (ii) a VectorSlabIndex built directly from
-    `encode_many` over the same chunks on the same device, compared as
-    (score, text) after the re-sort."""
+    (`docs`, else drawn from `texts`) streamed in `waves` waves into
+    DocumentStore with a TokenCountSplitter (`splitter_kw`, else the app's
+    50 to 250 tokens) and a TorchEmbedder of `emb_kw`, then `n_q` questions
+    retrieved with `k`. Held to (i) a direct split of the same documents
+    and (ii) a VectorSlabIndex built directly from `encode_many` over the
+    same chunks on the same device, compared as (score, text) after the
+    re-sort. The chunks and their token counts go into `keep_chunks` when
+    it is given."""
     import numpy as np
     import torch
 
@@ -833,6 +921,7 @@ def run_rag_ingest(device, emb_kw: dict, texts: list[str], *, n_docs: int, waves
     from pathway_tpu_torch.ops.attention import KERNEL
     from pathway_tpu_torch.stdlib.indexing import BruteForceKnnFactory
     from pathway_tpu_torch.xpacks.llm.document_store import DocumentStore
+    from pathway_tpu_torch.xpacks.llm.embedders import bucket_len
     from pathway_tpu_torch.xpacks.llm.splitters import TokenCountSplitter
 
     dev = torch.device(device)
@@ -841,8 +930,9 @@ def run_rag_ingest(device, emb_kw: dict, texts: list[str], *, n_docs: int, waves
     emb = TorchEmbedder(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
     emb.encode_many(["warm-up"])  # outside the timed run, as in rag_pipeline
     # word counts: tiktoken would fetch its encoding over the network on first use
-    splitter = TokenCountSplitter(min_tokens=50, max_tokens=250, tokenize_fn=str.split)
-    docs = ingest_corpus(texts, n_docs, seed=0)
+    splitter_kw = dict(min_tokens=50, max_tokens=250) if splitter_kw is None else splitter_kw
+    splitter = TokenCountSplitter(**splitter_kw, tokenize_fn=str.split)
+    docs = ingest_corpus(texts, n_docs, seed=0) if docs is None else docs
     rng = np.random.default_rng(1)
     questions = [texts[j] for j in rng.choice(len(texts), n_q, replace=False)]
     per_wave = -(-n_docs // waves)
@@ -881,6 +971,7 @@ def run_rag_ingest(device, emb_kw: dict, texts: list[str], *, n_docs: int, waves
         stages = clock.close()
         G.clear()
     launches = _build.LAUNCHES.get(KERNEL, 0)
+    launches_by_seq = dict(sorted(_build.LAUNCH_TAGS.get(KERNEL, {}).items()))
     dispatches = emb.dispatches - dispatches0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else "not measured"
     (slab,) = clock.indexes
@@ -892,6 +983,15 @@ def run_rag_ingest(device, emb_kw: dict, texts: list[str], *, n_docs: int, waves
         for c, _meta in splitter.chunk(d):
             want_chunks[c] = want_chunks.get(c, 0) + 1
     held = {c: n for c, n in chunks.items() if n}
+    chunks_by_bucket: dict[int, int] = {}
+    for c, n in want_chunks.items():
+        # HashTokenizer.tokenize's length (the CLS id and one id a word, up
+        # to max_len) without hashing the words
+        tokens = min(1 + len(WORD_RE.findall(c.lower())), cfg.max_len)
+        bucket = bucket_len(tokens, cfg.max_len)
+        chunks_by_bucket[bucket] = chunks_by_bucket.get(bucket, 0) + n
+        if keep_chunks is not None:
+            keep_chunks.append((c, tokens))
     # (ii) top-k against a slab built directly on the same device
     direct_texts = list(want_chunks)
     direct = VectorSlabIndex(dimensions=cfg.embed_dim, reserved_space=len(direct_texts), device=dev)
@@ -918,10 +1018,13 @@ def run_rag_ingest(device, emb_kw: dict, texts: list[str], *, n_docs: int, waves
                 break
             near_ties += gt != wt
     row = dict(
-        phase="rag_ingest", documents=n_docs, waves=waves, splitter="TokenCountSplitter(50, 250)",
-        chunks=sum(held.values()), **window,
+        phase=phase, documents=n_docs, waves=waves,
+        splitter=f"TokenCountSplitter({splitter.min_tokens}, {splitter.max_tokens})",
+        embedder=dict(emb_kw, dtype="bf16"), chunks=sum(held.values()),
+        chunks_by_bucket=dict(sorted(chunks_by_bucket.items())), **window,
         documents_per_s=n_docs / window["seconds"], chunks_per_s=sum(held.values()) / window["seconds"],
-        stage_seconds=stages, attention_launches=launches, encoder_dispatches=dispatches,
+        stage_seconds=stages, attention_launches=launches, attention_launches_by_seq=launches_by_seq,
+        encoder_dispatches=dispatches,
         embedded_rows=clock.embed_rows,
         rows_per_dispatch=clock.embed_rows / dispatches if dispatches else 0.0,
         slab_rows=len(slab), slab_slots=int(docs_t.shape[0]),
@@ -940,6 +1043,81 @@ def run_rag_ingest(device, emb_kw: dict, texts: list[str], *, n_docs: int, waves
             f"ingest did not embed through the attention kernel: {launches} launches for "
             f"{dispatches} encoder dispatches x {cfg.n_layers} layers"
         )
+    return row
+
+
+def run_long_embed(device, emb_kw: dict, texts: list[str], *, n_docs: int, waves: int, n_q: int,
+                   k: int, f32_chunks: int, f32_cpu_chunks: int) -> dict:
+    """Long-chunk live-RAG ingest (phase `long_embed`): `long_corpus`
+    documents through `run_rag_ingest` with the default
+    TokenCountSplitter() (50 to 500 tokens) and a TorchEmbedder of
+    `emb_kw`; on the card the attention kernel must launch at the s 256
+    and s 512 buckets. Then (phase `long_embed_f32`) the same encoder at
+    f32 encodes `f32_chunks` of the store's chunks through the kernel,
+    held to the plain attention route on the same device and, for
+    `f32_cpu_chunks` of them, to the port's CPU forward of the same
+    weights. Returns the ingest row with the launches of both phases."""
+    import numpy as np
+    import torch
+
+    from pathway_tpu_torch.models.tokenizer import HashTokenizer
+    from pathway_tpu_torch.models.transformer import TransformerEncoder, embedder_config
+    from pathway_tpu_torch.ops import _build
+    from pathway_tpu_torch.ops.attention import KERNEL
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    chunks: list[tuple[str, int]] = []
+    row = run_rag_ingest(device, emb_kw, texts, n_docs=n_docs, waves=waves, n_q=n_q, k=k,
+                         phase="long_embed", docs=long_corpus(texts, n_docs, waves, seed=0),
+                         splitter_kw={}, keep_chunks=chunks)
+    by_seq = row["attention_launches_by_seq"]
+    if on_card and not (by_seq.get(256, 0) > 0 and by_seq.get(512, 0) > 0):
+        raise AssertionError(f"long_embed did not launch the attention kernel at s 256 and s 512: {by_seq}")
+
+    # f32: chunks spread over the store's lengths, one batch padded to the longest
+    cfg = embedder_config(dtype=torch.float32, **emb_kw)
+    tok = HashTokenizer(vocab_size=cfg.vocab_size, max_len=cfg.max_len)
+    order = np.argsort([n for _, n in chunks], kind="stable")
+    picked = [chunks[i][0] for i in order[np.linspace(0, len(chunks) - 1, min(f32_chunks, len(chunks))).astype(int)]]
+    ids, mask = tok.batch(picked)
+    ids_t, mask_t = torch.from_numpy(ids).long(), torch.from_numpy(mask)
+    # the same weights on both devices: drawn by one CPU generator each
+    draw = lambda: torch.Generator().manual_seed(0)  # noqa: E731
+    fused = TransformerEncoder(cfg, device=dev, generator=draw())
+    plain = TransformerEncoder(dataclasses.replace(cfg, fused_attention=False), device=dev, generator=draw())
+    launches0 = _build.LAUNCHES.get(KERNEL, 0)
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        got = fused(ids_t.to(dev), mask_t.to(dev))
+        if on_card:
+            torch.cuda.synchronize()
+        fused_s = time.perf_counter() - t0
+        launches = _build.LAUNCHES.get(KERNEL, 0) - launches0
+        want = plain(ids_t.to(dev), mask_t.to(dev)).cpu().numpy()
+        got = got.cpu().numpy()
+        del fused, plain
+        sel = np.linspace(0, len(picked) - 1, min(f32_cpu_chunks, len(picked))).astype(int)
+        cpu = TransformerEncoder(cfg, device="cpu", generator=draw())
+        t0 = time.perf_counter()
+        want_cpu = cpu(ids_t[sel], mask_t[sel]).numpy()
+        cpu_s = time.perf_counter() - t0
+    err_plain = float(np.abs(got - want).max())
+    err_cpu = float(np.abs(got[sel] - want_cpu).max())
+    f32_row = dict(
+        phase="long_embed_f32", chunks=len(picked), seq=int(ids.shape[1]),
+        tokens_min=int(mask.sum(1).min()), tokens_max=int(mask.sum(1).max()),
+        fused_seconds=fused_s, attention_launches=launches, max_abs_err_vs_plain_route=err_plain,
+        cpu_chunks=int(len(sel)), cpu_seconds=cpu_s, max_abs_err_vs_cpu=err_cpu, atol=LONG_F32_ATOL,
+        finite=bool(np.isfinite(got).all()),
+    )
+    emit(f32_row)
+    if not f32_row["finite"] or err_plain > LONG_F32_ATOL or err_cpu > LONG_F32_ATOL:
+        raise AssertionError(f"the f32 encoder through the kernel disagrees: {f32_row}")
+    if on_card and launches != cfg.n_layers:
+        raise AssertionError(f"the f32 encoder did not go through the attention kernel: {f32_row}")
+    row["f32"] = f32_row
+    row["launches"] = row["attention_launches"] + launches
     return row
 
 
@@ -1088,6 +1266,10 @@ with open(CFG["out"] + f".{PID}.json", "w") as f:
 # bf16 embedding may differ by a few bf16 ulps, as in rag_ingest
 SPAWN_EMBED_ATOL = INGEST_SCORE_ATOL
 SPAWN_SHARDS = 4
+# rag_ingest's documents were 131,072 before long_embed joined the script
+# (121.6 s for both runs; 65,536 took 123.8 s, mostly process start-up and
+# `-n 2`'s shared host): cut for room in the script's time
+SPAWN_DOCS = 16_384
 
 
 def save_params(tree: dict, path: Path) -> None:
@@ -2892,10 +3074,10 @@ def main() -> int:
         ptxas=ptxas,
     ))
 
-    rows = [check_attention(label, b, s, d, h, seed=i, timed=True)
-            for i, (label, b, s, d, h) in enumerate(ATTENTION_SHAPES)]
-    rows += [check_attention(label, b, s, d, h, seed=100 + i, timed=False)
-             for i, (label, b, s, d, h) in enumerate(ATTENTION_CHECK_SHAPES)]
+    rows = [check_attention(label, b, s, d, h, dtype, seed=i, timed=True)
+            for i, (label, b, s, d, h, dtype) in enumerate(ATTENTION_SHAPES)]
+    rows += [check_attention(label, b, s, d, h, dtype, seed=100 + i, timed=False)
+             for i, (label, b, s, d, h, dtype) in enumerate(ATTENTION_CHECK_SHAPES)]
     main_shape = rows[0]
 
     result = run_slice("cuda", FLAGSHIP, N_DOCS, DOC_BATCH, DOC_SEQ, ROOT)
@@ -2923,6 +3105,15 @@ def main() -> int:
             workdir=Path(tmp),
         )
 
+    # long-chunk live-RAG ingest at the JAX package's default encoder width
+    # (max_len 512, the default splitter's 500-token chunks), then that
+    # encoder at f32 through the kernel (launches read across the phase)
+    t0 = time.perf_counter()
+    long_embed = run_long_embed("cuda", LONG_EMBEDDER, load_texts(ROOT), n_docs=LONG_DOCS, waves=LONG_WAVES,
+                                n_q=LONG_QUESTIONS, k=LONG_K, f32_chunks=LONG_F32_CHUNKS,
+                                f32_cpu_chunks=LONG_F32_CPU_CHUNKS)
+    emit(dict(phase="long_embed_seconds", seconds=time.perf_counter() - t0))
+
     # the vector-store server over the texts phase's chunks (its launch
     # count read across the phase alone)
     t0 = time.perf_counter()
@@ -2934,7 +3125,7 @@ def main() -> int:
     # TorchEmbedder on the card (the children's launches are their own)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        spawn = run_spawn_embed(None, None, load_texts(ROOT), n_docs=INGEST_DOCS, shards=SPAWN_SHARDS,
+        spawn = run_spawn_embed(None, None, load_texts(ROOT), n_docs=SPAWN_DOCS, shards=SPAWN_SHARDS,
                                 processes=(1, 2), workdir=Path(tmp))
     emit(dict(phase="spawn_embed_seconds", seconds=time.perf_counter() - t0))
 
@@ -2992,8 +3183,8 @@ def main() -> int:
         name="fused_qkv_attention", route="cuda",
         source="pathway_tpu_torch/csrc/attention.cu",
         replaces="pathway_tpu/ops/attention.py:38",
-        launches=(result["launches"] + engine["launches"] + store["launches"] + spawn["attention_launches"]
-                  + mesh_launches),
+        launches=(result["launches"] + engine["launches"] + long_embed["launches"] + store["launches"]
+                  + spawn["attention_launches"] + mesh_launches),
         max_abs_err=max(r["max_abs_err"] for r in rows),
         ms=main_shape["ms"], plain_ms=main_shape["plain_ms"],
         bound_ms=main_shape["bound_ms"], bound_by=main_shape["bound_by"],

@@ -7,9 +7,12 @@ projection is ``x @ W``), the same forward and the same rounding points.
 Every projection multiplies in ``cfg.dtype`` with f32 sums and rounds
 once, as the JAX package's einsums with ``preferred_element_type=float32``
 do. The encoder's attention is ``ops.attention.fused_qkv_attention``: the
-CUDA kernel on the card, the plain version on the CPU; a config with
-``fused_attention=False`` runs ``reference_attention`` on any device, as
-the JAX package's does off the TPU. The decoder's
+CUDA kernel on the card, the plain version on the CPU. The kernel takes
+every encoder the plain route takes at the widths the JAX package runs
+(bf16, f16 or f32; any sequence length; head_dim a multiple of 8 up to
+256); a config with ``fused_attention=False`` runs
+``reference_attention`` on any device, as the JAX package's does off the
+TPU. The decoder's
 causal and cached attention is plain PyTorch (:func:`_attend`), as the
 JAX package leaves it to XLA.
 
@@ -79,9 +82,9 @@ class TransformerConfig:
     dtype: torch.dtype = torch.bfloat16
     embed_dim: int | None = None  # projection head dim (None = d_model)
     # The encoder's attention: True launches the fused kernel
-    # (csrc/attention.cu) on the card, which takes bf16, head_dim 32 or 64
-    # and s <= 128 and raises outside them; False runs the plain
-    # `reference_attention` on any device and at any of those.
+    # (csrc/attention.cu) on the card, which takes bf16, f16 and f32, any
+    # s and head_dim a multiple of 8 up to 256, and raises outside them;
+    # False runs the plain `reference_attention` on any device.
     fused_attention: bool = True
     # Sequence parallelism: the name of the mesh axis the sequence is
     # sharded over. When set, forward/encode run inside spmd.shard_map on

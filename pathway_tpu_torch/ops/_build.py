@@ -31,6 +31,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, shared memory and spills go to the log
+    # optimise and assemble a source's kernels in parallel, one job a
+    # core: about half the build time of the attention kernel's 26
+    # instantiations (chip_smoke's `device` phase reads build_s)
+    "--split-compile=0",
 )
 
 _lock = threading.Lock()
@@ -38,14 +42,21 @@ _libs: dict[str, ctypes.CDLL] = {}
 
 # kernel name -> launches since the last reset_launch_counts()
 LAUNCHES: dict[str, int] = {}
+# kernel name -> {tag: launches}, for wrappers that tag a launch (the
+# attention kernel's tag is its sequence length)
+LAUNCH_TAGS: dict[str, dict[int, int]] = {}
 
 
-def count_launch(name: str) -> None:
+def count_launch(name: str, tag: int | None = None) -> None:
     LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
+    if tag is not None:
+        by_tag = LAUNCH_TAGS.setdefault(name, {})
+        by_tag[tag] = by_tag.get(tag, 0) + 1
 
 
 def reset_launch_counts() -> None:
     LAUNCHES.clear()
+    LAUNCH_TAGS.clear()
 
 
 def sources() -> list[str]:

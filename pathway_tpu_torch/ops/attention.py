@@ -1,19 +1,25 @@
 """Fused multi-head attention over the fused qkv projection.
 
-Counterpart of ``pathway_tpu/ops/attention.py``. The flagship embedder
-runs many short sequences (RAG chunks, s <= 128) at large batch; the
-attention of each encoder layer takes the fused projection qkv
-[b, s, 3d] and returns ctx [b, s, d].
+Counterpart of ``pathway_tpu/ops/attention.py``. An encoder's attention
+takes the fused projection qkv [b, s, 3d] and returns ctx [b, s, d]: the
+flagship embedder at many short sequences (RAG chunks, s <= 128) and
+large batch, a RAG ingest of 500-token chunks at s 256 and 512.
 
 ``fused_qkv_attention`` launches the hand-written Hopper kernel
 ``pathway_tpu_torch/csrc/attention.cu`` on a CUDA tensor. It replaces the
-TPU kernel ``pathway_tpu/ops/attention.py:_attn_kernel`` and keeps its
-device-memory contract: qkv is read once, ctx written once, and no
-[b, h, s, s] tensor reaches device memory. The kernel is bound by bytes
-on the H100 (PERF.md gives the bound per shape); the source's header
-says what its design does about that. On a CPU tensor the wrapper runs
-``reference_attention``, the plain version the tests and
-``chip_smoke.py`` hold the kernel against.
+TPU kernel ``pathway_tpu/ops/attention.py:_attn_kernel`` over that
+kernel's whole contract (qkv in bf16, f16 or f32, its probabilities
+rounded to qkv's dtype; any s; every head width that is a multiple of 8
+up to 256) and keeps its device-memory contract: qkv is read once, ctx
+written once, and no [b, h, s, s] tensor reaches device memory. Two
+kernels sit behind the one entry point: a one-pass kernel that holds a
+whole row of keys (bf16, head_dim 32 or 64, s <= 128) and a tiled
+two-pass kernel for the rest, which streams the keys in tiles and
+rounds the normalised probabilities where the TPU kernel rounds them.
+The kernel is bound by bytes at the encoders' shapes (PERF.md gives the
+bound per shape); the source's header says what its design does about
+that. On a CPU tensor the wrapper runs ``reference_attention``, the
+plain version the tests and ``chip_smoke.py`` hold the kernel against.
 
 ``ring_attention`` is the sequence-parallel attention of the JAX
 package's ``seq_axis`` encoders: an XLA program there, plain PyTorch
@@ -31,8 +37,10 @@ import torch
 from pathway_tpu_torch.ops import _build
 
 KERNEL = "fused_qkv_attention"
-MAX_SEQ = 128  # csrc/attention.cu kMaxSeq
-HEAD_DIMS = (32, 64)  # the kernel's instantiations
+MAX_HEAD_DIM = 256  # csrc/attention.cu's widest instantiation
+# qkv dtypes the kernel takes, by the code its C entry point reads
+_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
+_BLOCK_QUERIES = 64  # queries a block of the tiled kernel
 # what an encoder outside the kernel's envelope sets instead
 _PLAIN_ROUTE = "; set fused_attention=False in the TransformerConfig to run the plain attention"
 
@@ -43,9 +51,9 @@ def _kernel_lib() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = _build.load("attention")
-        fn = lib.pw_fused_qkv_attention_bf16
+        fn = lib.pw_fused_qkv_attention
         fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_float, ctypes.c_void_p,
         ]
@@ -59,11 +67,12 @@ def fused_qkv_attention(
     token_mask: torch.Tensor,  # [b, s] 1/0
     n_heads: int,
 ) -> torch.Tensor:
-    """Bidirectional MHA over a fused qkv tensor; returns ctx [b, s, d].
+    """Bidirectional MHA over a fused qkv tensor; returns ctx [b, s, d]
+    in qkv's dtype.
 
-    A CUDA tensor launches the kernel (bf16, contiguous, s <= 128,
-    head_dim 32 or 64; anything else raises). A CPU tensor runs
-    :func:`reference_attention`.
+    A CUDA tensor launches the kernel: qkv bf16, f16 or f32, contiguous
+    and 16-byte aligned, any s >= 1, head_dim a multiple of 8 up to 256;
+    anything else raises. A CPU tensor runs :func:`reference_attention`.
     """
     if qkv.device.type == "cpu":
         return reference_attention(qkv, token_mask, n_heads)
@@ -76,18 +85,25 @@ def fused_qkv_attention(
     if d % n_heads != 0:
         raise ValueError(f"d_model {d} is not divisible by n_heads {n_heads}")
     dh = d // n_heads
-    if qkv.dtype != torch.bfloat16:
-        raise TypeError(f"the attention kernel takes bf16 qkv, got {qkv.dtype}{_PLAIN_ROUTE}")
+    if qkv.dtype not in _DTYPES:
+        raise TypeError(
+            f"the attention kernel takes bf16, f16 or f32 qkv, got {qkv.dtype}{_PLAIN_ROUTE}"
+        )
     if not qkv.is_contiguous():
         raise ValueError("the attention kernel takes a contiguous qkv")
     if qkv.data_ptr() % 16 != 0:
         raise ValueError("the attention kernel needs a 16-byte aligned qkv")
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"the attention kernel takes head_dim in {HEAD_DIMS}, got {dh}{_PLAIN_ROUTE}")
-    if not 1 <= s <= MAX_SEQ:
-        raise ValueError(f"the attention kernel takes 1 <= s <= {MAX_SEQ}, got {s}{_PLAIN_ROUTE}")
-    if b * n_heads >= 2**31:
-        raise ValueError(f"batch {b} x {n_heads} heads exceeds the kernel's grid")
+    if dh % 8 != 0 or dh > MAX_HEAD_DIM:
+        # a head offset off the 16-byte grid of the fused layout, or wider
+        # than any instantiation (ROADMAP §B)
+        raise ValueError(
+            f"the attention kernel takes a head_dim that is a multiple of 8 up to "
+            f"{MAX_HEAD_DIM}, got {dh}{_PLAIN_ROUTE}"
+        )
+    if b < 1 or s < 1:
+        raise ValueError(f"the attention kernel takes b >= 1 and s >= 1, got b={b}, s={s}")
+    if b * n_heads * -(-s // _BLOCK_QUERIES) >= 2**31:
+        raise ValueError(f"batch {b} x {n_heads} heads x s {s} exceeds the kernel's grid")
     if tuple(token_mask.shape) != (b, s) or token_mask.device != qkv.device:
         raise ValueError(
             f"token_mask must be [{b}, {s}] on {qkv.device}, got "
@@ -97,17 +113,17 @@ def fused_qkv_attention(
     out = torch.empty((b, s, d), dtype=qkv.dtype, device=qkv.device)
     lib = _kernel_lib()
     with torch.cuda.device(qkv.device):
-        rc = lib.pw_fused_qkv_attention_bf16(
-            qkv.data_ptr(), mask.data_ptr(), out.data_ptr(),
+        rc = lib.pw_fused_qkv_attention(
+            qkv.data_ptr(), mask.data_ptr(), out.data_ptr(), _DTYPES[qkv.dtype],
             b, s, d, n_heads, 1.0 / math.sqrt(dh),
             torch.cuda.current_stream(qkv.device).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(
             f"attention kernel launch failed with CUDA error {rc} "
-            f"(b={b}, s={s}, d={d}, n_heads={n_heads})"
+            f"(b={b}, s={s}, d={d}, n_heads={n_heads}, {qkv.dtype})"
         )
-    _build.count_launch(KERNEL)
+    _build.count_launch(KERNEL, s)
     return out
 
 

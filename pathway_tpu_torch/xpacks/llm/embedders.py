@@ -6,8 +6,10 @@ flagship encoder, the counterpart of ``JaxEmbedder``) with the same
 tokenizer, row and sequence buckets and wave coalescer. As a ``pw.UDF``
 its async ``__wrapped__`` submits one text to the coalescer, which folds
 every row of a wave into one encoder dispatch on the card;
-``encode_many(texts)`` encodes synchronously. The JAX package's remote
-API embedders (OpenAI, LiteLLM, Gemini, sentence-transformers) wait.
+``encode_many(texts)`` encodes synchronously. The provider embedders
+(``OpenAIEmbedder``, ``LiteLLMEmbedder``, ``GeminiEmbedder``) and the
+local ``SentenceTransformerEmbedder`` (on the card by default) are the JAX
+package's, each importing its provider's package when built.
 """
 
 from __future__ import annotations
@@ -38,6 +40,128 @@ class BaseEmbedder(pw.UDF):
 
     def __call__(self, input: ColumnExpression, *args: Any, **kwargs: Any) -> ColumnExpression:
         return super().__call__(input, *args, **kwargs)
+
+
+class OpenAIEmbedder(BaseEmbedder):
+    """OpenAI embeddings API (reference: embedders.py:85)."""
+
+    def __init__(
+        self,
+        *,
+        capacity: int | None = None,
+        retry_strategy: udfs.AsyncRetryStrategy | None = None,
+        cache_strategy: udfs.CacheStrategy | None = None,
+        model: str | None = "text-embedding-3-small",
+        **openai_kwargs: Any,
+    ):
+        executor = udfs.async_executor(capacity=capacity, retry_strategy=retry_strategy)
+        super().__init__(executor=executor, cache_strategy=cache_strategy)
+        try:
+            import openai
+        except ImportError as e:
+            raise ImportError(
+                "OpenAIEmbedder requires `openai`; use TorchEmbedder for the "
+                "path on the card"
+            ) from e
+        self.kwargs = {"model": model, **openai_kwargs}
+        # one client for all rows: connection pooling matters on the
+        # hottest path of the pipeline
+        self.client = openai.AsyncOpenAI()
+
+    async def __wrapped__(self, input: str, **kwargs: Any) -> np.ndarray:
+        merged = {**self.kwargs, **kwargs}
+        ret = await self.client.embeddings.create(input=[input or "."], **merged)
+        return np.array(ret.data[0].embedding)
+
+
+class LiteLLMEmbedder(BaseEmbedder):
+    """LiteLLM embeddings (reference: embedders.py:180)."""
+
+    def __init__(
+        self,
+        *,
+        capacity: int | None = None,
+        retry_strategy: udfs.AsyncRetryStrategy | None = None,
+        cache_strategy: udfs.CacheStrategy | None = None,
+        model: str | None = None,
+        **kwargs: Any,
+    ):
+        executor = udfs.async_executor(capacity=capacity, retry_strategy=retry_strategy)
+        super().__init__(executor=executor, cache_strategy=cache_strategy)
+        try:
+            import litellm  # noqa: F401
+        except ImportError as e:
+            raise ImportError(
+                "LiteLLMEmbedder requires `litellm`; use TorchEmbedder for the path on the card"
+            ) from e
+        self.kwargs = {"model": model, **kwargs}
+
+    async def __wrapped__(self, input: str, **kwargs: Any) -> np.ndarray:
+        import litellm
+
+        merged = {**self.kwargs, **kwargs}
+        ret = await litellm.aembedding(input=[input or "."], **merged)
+        return np.array(ret.data[0]["embedding"])
+
+
+class GeminiEmbedder(BaseEmbedder):
+    """Google Gemini embeddings (reference: embedders.py:330)."""
+
+    def __init__(
+        self,
+        *,
+        capacity: int | None = None,
+        retry_strategy: udfs.AsyncRetryStrategy | None = None,
+        cache_strategy: udfs.CacheStrategy | None = None,
+        model: str | None = "models/embedding-001",
+        **kwargs: Any,
+    ):
+        executor = udfs.async_executor(capacity=capacity, retry_strategy=retry_strategy)
+        super().__init__(executor=executor, cache_strategy=cache_strategy)
+        try:
+            import google.generativeai as genai  # noqa: F401
+        except ImportError as e:
+            raise ImportError(
+                "GeminiEmbedder requires `google-generativeai`; use TorchEmbedder for "
+                "the path on the card"
+            ) from e
+        self.kwargs = {"model": model, **kwargs}
+
+    def __wrapped__(self, input: str, **kwargs: Any) -> np.ndarray:
+        import google.generativeai as genai
+
+        merged = {**self.kwargs, **kwargs}
+        ret = genai.embed_content(content=input or ".", **merged)
+        return np.array(ret["embedding"])
+
+
+class SentenceTransformerEmbedder(BaseEmbedder):
+    """Local sentence-transformers model, row-wise (reference:
+    embedders.py:270), on the card unless `device` says otherwise; kept
+    for drop-in compatibility, TorchEmbedder is the port's wave-batched
+    path."""
+
+    def __init__(
+        self,
+        model: str,
+        call_kwargs: dict = {},
+        device: str = "cuda",
+        **init_kwargs: Any,
+    ):
+        super().__init__()
+        try:
+            from sentence_transformers import SentenceTransformer
+        except ImportError as e:
+            raise ImportError(
+                "SentenceTransformerEmbedder requires `sentence_transformers`; "
+                "use TorchEmbedder for the path on the card"
+            ) from e
+        self.model = SentenceTransformer(model, device=device, **init_kwargs)
+        self.kwargs = dict(call_kwargs)
+
+    def __wrapped__(self, text: str, **kwargs: Any) -> np.ndarray:
+        merged = {**self.kwargs, **kwargs}
+        return self.model.encode(text or ".", **merged)
 
 
 def bucket_len(longest: int, cap: int) -> int:

@@ -4,8 +4,10 @@ Counterpart of ``pathway_tpu/xpacks/llm/llms.py``: ``BaseChat`` (a
 ``pw.UDF`` whose async ``__wrapped__(messages)`` returns the answer) and
 the port's own model chat ``TorchLMChat``, the counterpart of
 ``JaxLMChat``: the same defaults, tokenizer, buckets and output format
-(``"<id> <id> ..."``), generating on the card. The JAX package's remote
-API chats (OpenAI, LiteLLM, Cohere, HF pipelines) wait.
+(``"<id> <id> ..."``), generating on the card. The provider chats
+(``OpenAIChat``, ``LiteLLMChat``, ``CohereChat``) and the local
+HuggingFace pipeline (``HFPipelineChat``, on the card by default) are
+the JAX package's, each importing its provider's package when built.
 """
 
 from __future__ import annotations
@@ -68,6 +70,133 @@ class BaseChat(pw.UDF):
 
     def __call__(self, messages: ColumnExpression, **kwargs: Any) -> ColumnExpression:
         return super().__call__(messages, **kwargs)
+
+
+class OpenAIChat(BaseChat):
+    """OpenAI chat-completions (reference: llms.py:84). Requires the
+    `openai` package and network access; construction fails fast otherwise."""
+
+    def __init__(self, model: str | None = "gpt-4o-mini", **kwargs: Any):
+        super().__init__(**kwargs)
+        self.kwargs["model"] = model
+        try:
+            import openai
+        except ImportError as e:
+            raise ImportError(
+                "OpenAIChat requires the `openai` package; use TorchLMChat for "
+                "generation on the card or mocks.FakeChatModel in tests"
+            ) from e
+        self.client = openai.AsyncOpenAI()  # shared pool across rows
+
+    async def __wrapped__(self, messages: Any, **kwargs: Any) -> str | None:
+        msgs = messages.value if isinstance(messages, Json) else messages
+        merged = {**self.kwargs, **kwargs}
+        ret = await self.client.chat.completions.create(messages=msgs, **merged)
+        return ret.choices[0].message.content
+
+
+class LiteLLMChat(BaseChat):
+    """LiteLLM multi-provider chat (reference: llms.py:313)."""
+
+    def __init__(self, model: str | None = None, **kwargs: Any):
+        super().__init__(**kwargs)
+        self.kwargs["model"] = model
+        try:
+            import litellm  # noqa: F401
+        except ImportError as e:
+            raise ImportError(
+                "LiteLLMChat requires the `litellm` package; use TorchLMChat for "
+                "generation on the card"
+            ) from e
+
+    async def __wrapped__(self, messages: Any, **kwargs: Any) -> str | None:
+        import litellm
+
+        msgs = messages.value if isinstance(messages, Json) else messages
+        merged = {**self.kwargs, **kwargs}
+        ret = await litellm.acompletion(messages=msgs, **merged)
+        return ret.choices[0].message.content
+
+
+class CohereChat(BaseChat):
+    """Cohere chat with citations (reference: llms.py:544)."""
+
+    def __init__(self, model: str | None = "command", **kwargs: Any):
+        super().__init__(**kwargs)
+        self.kwargs["model"] = model
+        try:
+            import cohere
+        except ImportError as e:
+            raise ImportError(
+                "CohereChat requires the `cohere` package; use TorchLMChat for "
+                "generation on the card"
+            ) from e
+        self.client = cohere.AsyncClient()  # shared pool across rows
+
+    async def __wrapped__(
+        self, messages: Any, documents: Any = None, **kwargs: Any
+    ) -> tuple:
+        msgs = messages.value if isinstance(messages, Json) else messages
+        client = self.client
+        merged = {**self.kwargs, **kwargs}
+        docs = (
+            [d.value if isinstance(d, Json) else d for d in documents]
+            if documents
+            else None
+        )
+        message = msgs[-1]["content"]
+        chat_history = msgs[:-1]
+        ret = await client.chat(
+            message=message, chat_history=chat_history, documents=docs, **merged
+        )
+        cited = [
+            {"text": c.text, "start": c.start, "end": c.end}
+            for c in (ret.citations or [])
+        ]
+        return ret.text, cited
+
+
+class HFPipelineChat(BaseChat):
+    """Local HuggingFace text-generation pipeline (reference: llms.py:441),
+    on the card unless `device` says otherwise; TorchLMChat is the port's
+    own model chat."""
+
+    def __init__(
+        self,
+        model: str | None = "gpt2",
+        call_kwargs: dict | None = None,
+        device: str = "cuda",
+        **kwargs: Any,
+    ):
+        super().__init__(**kwargs)
+        try:
+            from transformers import pipeline
+        except ImportError as e:
+            raise ImportError(
+                "HFPipelineChat requires `transformers`; use TorchLMChat for "
+                "generation on the card"
+            ) from e
+        self.pipeline = pipeline("text-generation", model=model, device=device)
+        self.tokenizer = self.pipeline.tokenizer
+        self.call_kwargs = call_kwargs or {}
+
+    def crop_to_max_length(self, input_string: str, max_prompt_length: int = 500) -> str:
+        tokens = self.tokenizer.tokenize(input_string)
+        if len(tokens) > max_prompt_length:
+            tokens = tokens[-max_prompt_length:]
+        return self.tokenizer.convert_tokens_to_string(tokens)
+
+    def __wrapped__(self, messages: Any, **kwargs: Any) -> str | None:
+        msgs = messages.value if isinstance(messages, Json) else messages
+        if isinstance(msgs, list):
+            prompt = "\n".join(m["content"] for m in msgs)
+        else:
+            prompt = str(msgs)
+        merged = {**self.call_kwargs, **kwargs}
+        merged.setdefault("max_new_tokens", 64)
+        merged.setdefault("return_full_text", False)
+        out = self.pipeline(prompt, **merged)
+        return out[0]["generated_text"]
 
 
 class TorchLMChat(BaseChat):

@@ -7,8 +7,9 @@ with a card and without JAX:
     python -m pytest --noconftest -m cuda tests/test_torch_encoder_cuda.py -q
 
 Without a card every test skips. ``fused_attention=True`` (the default)
-launches the attention kernel, which takes bf16, head_dim 32 or 64 and
-s <= 128, and raises outside them with a message that names the field;
+launches the attention kernel, which takes bf16, f16 and f32, any s and
+every head width that is a multiple of 8 up to 256 (ROADMAP C6: before,
+it took bf16, head_dim 32 or 64 and s <= 128 and raised outside them);
 ``fused_attention=False`` runs the plain attention on the card at any
 dtype and length (ROADMAP C1). Tolerances: at f32 the card's and the
 CPU's embeddings agree within 1e-4 (unit vectors; TF32 is off, so only
@@ -57,10 +58,15 @@ def _card_and_cpu(cfg, cuda_device):
 
 
 def test_f32_encoder_raises_on_the_kernel_and_encodes_unfused(cuda_device):
+    """An f32 encoder: the kernel serves it (it raised before C6) and
+    agrees with the CPU; the unfused route launches nothing and agrees
+    too."""
     ids, mask = _tokens(32)
-    fused, _ = _card_and_cpu(embedder_config(max_len=32, dtype=torch.float32, **EMB), cuda_device)
-    with pytest.raises(TypeError, match="fused_attention=False"):
-        fused(ids.to(cuda_device), mask.to(cuda_device))
+    fused, cpu = _card_and_cpu(embedder_config(max_len=32, dtype=torch.float32, **EMB), cuda_device)
+    _build.reset_launch_counts()
+    got = fused(ids.to(cuda_device), mask.to(cuda_device))
+    assert got.dtype == torch.float32 and _build.LAUNCHES.get(KERNEL, 0) == EMB["n_layers"]
+    np.testing.assert_allclose(got.cpu().numpy(), cpu(ids, mask).numpy(), atol=F32_ATOL)
     cfg = embedder_config(max_len=32, dtype=torch.float32, fused_attention=False, **EMB)
     card, cpu = _card_and_cpu(cfg, cuda_device)
     _build.reset_launch_counts()
@@ -78,12 +84,16 @@ def test_bf16_unfused_encoder_matches_the_cpu(cuda_device):
 
 
 def test_long_sequences_need_the_unfused_route(cuda_device):
-    """s 256 lies past the kernel's 128: the default raises naming the
-    field, the unfused config encodes and agrees with the CPU."""
-    ids, mask = _tokens(256, seed=2, b=4)
-    fused, _ = _card_and_cpu(embedder_config(max_len=512, **EMB), cuda_device)
-    with pytest.raises(ValueError, match="fused_attention=False"):
-        fused(ids.to(cuda_device), mask.to(cuda_device))
+    """s 256 and 512, past the short kernel's 128 (where the default
+    raised before C6): the default config launches the tiled kernel at
+    that s and agrees with the CPU, and so does the unfused config."""
+    for s in (256, 512):
+        ids, mask = _tokens(s, seed=2, b=4)
+        fused, cpu = _card_and_cpu(embedder_config(max_len=512, **EMB), cuda_device)
+        _build.reset_launch_counts()
+        got = fused(ids.to(cuda_device), mask.to(cuda_device))
+        assert _build.LAUNCH_TAGS[KERNEL] == {s: EMB["n_layers"]}
+        np.testing.assert_allclose(got.cpu().numpy(), cpu(ids, mask).numpy(), atol=BF16_ATOL)
     card, cpu = _card_and_cpu(embedder_config(max_len=512, fused_attention=False, **EMB), cuda_device)
     np.testing.assert_allclose(
         card(ids.to(cuda_device), mask.to(cuda_device)).cpu().numpy(), cpu(ids, mask).numpy(), atol=BF16_ATOL

@@ -60,13 +60,39 @@ def test_build_key_covers_source_and_flags():
 
 
 # (b, s, d, h): the two main-path shapes cut in batch, s 16 and 32, s 128 at
-# dh 64, ragged s at both head dims, and odd batch and head counts
+# dh 64, ragged s at both head dims, and odd batch and head counts; then the
+# tiled kernel: s past 128 (one key past two tiles, the s 256 and s 512
+# buckets, a long ragged s), and head_dim 8 (zero-padded into 16), 96, 128
+# and 256
 CARD_SHAPES = [
     (64, 64, 384, 6), (32, 128, 256, 8), (8, 16, 64, 2),
     (5, 16, 192, 3), (7, 32, 128, 2), (16, 128, 384, 6),
     (16, 40, 384, 6), (16, 40, 256, 8), (9, 100, 384, 6), (9, 100, 256, 8),
     (3, 1, 64, 2), (4, 17, 96, 3),
+    (8, 129, 512, 8), (4, 256, 512, 8), (4, 512, 512, 8), (2, 1000, 384, 6),
+    (8, 100, 16, 2), (8, 100, 96, 1), (8, 200, 256, 2), (4, 300, 512, 2),
 ]
+# every dtype the kernel takes, and its bound against the plain version:
+# one bf16 ulp at |ctx| < 4 for the 16-bit types (a flipped rounding), the
+# f32 sums in another order at f32 (TF32 off in the plain version)
+CARD_DTYPES = {"bf16": (torch.bfloat16, 2.0**-6), "f16": (torch.float16, 2.0**-6), "f32": (torch.float32, 1e-5)}
+
+
+def _check_on_card(cuda_device, b, s, d, h, seed, dtype):
+    torch_dtype, atol = CARD_DTYPES[dtype]
+    qkv, mask = _qkv_case(seed, b, s, d)
+    q = torch.from_numpy(qkv).to(cuda_device, torch_dtype)
+    m = torch.from_numpy(mask).to(cuda_device)
+    _build.reset_launch_counts()
+    out = tattn.fused_qkv_attention(q, m, h)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[tattn.KERNEL] == 1 and out.dtype == torch_dtype
+    ref = tattn.reference_attention(q, m, h)
+    assert torch.isfinite(out.float()).all()
+    assert (out.float() - ref.float()).abs().max().item() <= atol
+    # row 0 is all padding: the mean of its s keys of v
+    v_mean = q[0, :, 2 * d:].float().mean(dim=0)
+    assert (out[0].float() - v_mean).abs().max().item() <= atol
 
 
 @pytest.mark.cuda
@@ -75,23 +101,22 @@ CARD_SHAPES = [
 def test_kernel_matches_plain_on_card(cuda_device, b, s, d, h, seed):
     """On the card: the kernel against the plain version, bf16, with
     random padding and an all-padding row; one bf16 ulp at |ctx| < 4."""
-    qkv, mask = _qkv_case(seed, b, s, d)
-    q = torch.from_numpy(qkv).to(cuda_device, torch.bfloat16)
-    m = torch.from_numpy(mask).to(cuda_device)
-    _build.reset_launch_counts()
-    out = tattn.fused_qkv_attention(q, m, h)
-    torch.cuda.synchronize()
-    assert _build.LAUNCHES[tattn.KERNEL] == 1
-    ref = tattn.reference_attention(q, m, h)
-    assert torch.isfinite(out.float()).all()
-    assert (out.float() - ref.float()).abs().max().item() <= 2.0**-6
-    # row 0 is all padding: the mean of its s keys of v
-    v_mean = q[0, :, 2 * d:].float().mean(dim=0)
-    assert (out[0].float() - v_mean).abs().max().item() <= 2.0**-6
+    _check_on_card(cuda_device, b, s, d, h, seed, "bf16")
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("s,d,h", [(64, 384, 6), (128, 256, 8), (40, 128, 2)])
+@pytest.mark.parametrize("dtype", ["f16", "f32"])
+@pytest.mark.parametrize("b,s,d,h", CARD_SHAPES)
+def test_kernel_matches_plain_on_card_in_f16_and_f32(cuda_device, b, s, d, h, dtype):
+    """The same in f16 and f32: the kernel takes qkv's dtype and writes
+    ctx in it, as the TPU kernel does."""
+    _check_on_card(cuda_device, b, s, d, h, 7, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "s,d,h", [(64, 384, 6), (128, 256, 8), (40, 128, 2), (256, 512, 8), (1000, 64, 2)]
+)
 def test_kernel_all_padding_batch_has_no_nan(cuda_device, s, d, h):
     """Every row all padding: each row of ctx is the mean of its s keys
     of v, with no NaN and nothing from keys past s."""
@@ -108,14 +133,31 @@ def test_kernel_all_padding_batch_has_no_nan(cuda_device, s, d, h):
 
 @pytest.mark.cuda
 def test_kernel_wrapper_rejects_what_it_cannot_take(cuda_device):
-    qkv = torch.zeros(2, 16, 3 * 96, device=cuda_device, dtype=torch.bfloat16)
+    """What the kernel does not take raises, naming the plain route: a
+    head_dim past 256 or off the multiples of 8, a dtype other than bf16,
+    f16 and f32, a strided qkv, a mask on another device. dh 96, f32 and
+    s 256, which raised before the tiled kernel, are served (the matches
+    above)."""
     mask = torch.ones(2, 16, dtype=torch.int32, device=cuda_device)
-    with pytest.raises(ValueError, match="head_dim"):
-        tattn.fused_qkv_attention(qkv, mask, 1)  # dh = 96
-    with pytest.raises(TypeError, match="bf16"):
-        tattn.fused_qkv_attention(qkv.float(), mask, 3)
+    wide = torch.zeros(2, 16, 3 * 264, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim .* up to 256, got 264.*fused_attention=False"):
+        tattn.fused_qkv_attention(wide, mask, 1)
+    odd = torch.zeros(2, 16, 3 * 36, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 8.*got 12"):
+        tattn.fused_qkv_attention(odd, mask, 3)
+    qkv = torch.zeros(2, 16, 3 * 96, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="bf16, f16 or f32"):
+        tattn.fused_qkv_attention(qkv.double(), mask, 3)
     with pytest.raises(ValueError, match="contiguous"):
         tattn.fused_qkv_attention(qkv.transpose(0, 1), mask.t(), 3)
-    long = torch.zeros(1, 256, 3 * 64, device=cuda_device, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="s <="):
-        tattn.fused_qkv_attention(long, torch.ones(1, 256, device=cuda_device), 1)
+    with pytest.raises(ValueError, match="token_mask"):
+        tattn.fused_qkv_attention(qkv, mask.cpu(), 3)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tattn.fused_qkv_attention(qkv.to("meta"), mask.to("meta"), 3)
+    long = torch.zeros(1, 256, 3 * 64, device=cuda_device, dtype=torch.float16)
+    _build.reset_launch_counts()
+    for served, heads in ((qkv, 1), (qkv.float(), 3), (long, 2)):
+        out = tattn.fused_qkv_attention(served, torch.ones(served.shape[:2], device=cuda_device), heads)
+        assert out.dtype == served.dtype
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[tattn.KERNEL] == 3

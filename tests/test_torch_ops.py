@@ -3,7 +3,11 @@
 The same numpy inputs, made from a seed, go through the JAX function and
 its PyTorch counterpart on the CPU. The CUDA kernel itself cannot run
 here: ``tests/test_torch_kernels.py`` holds it against the plain version
-on a card and ``chip_smoke.py`` does so at the main path's shapes.
+on a card and ``chip_smoke.py`` does so at the main path's shapes. Here
+the plain version, the kernel's yardstick, is held to the JAX reference
+and to the Pallas kernel in interpret mode over the kernel's whole
+contract: every dtype (f32, bf16, f16), sequences past 128 and every head
+width the CUDA kernel instantiates.
 """
 
 import jax.numpy as jnp
@@ -36,14 +40,21 @@ def _qkv_case(seed: int, b: int, s: int, d: int):
 # ------------------------------------------------------------- attention
 
 
-# (b, s, d, h): the kernel's tilings at both head dims (s 16 to 128, 16 rows
-# a warp) and a ragged s (40) whose keys past s the kernel must drop; row 0
-# of every case is all padding
+# (b, s, d, h): the short kernel's tilings at both head dims (s 16 to 128,
+# 16 rows a warp) and a ragged s (40) whose keys past s the kernel must
+# drop; row 0 of every case is all padding
 ATTENTION_SHAPES = [
     (8, 16, 32, 4), (4, 32, 64, 2), (6, 16, 64, 1),
     (4, 64, 256, 4), (4, 64, 128, 4), (2, 128, 128, 2), (2, 128, 64, 2),
     (4, 40, 128, 2), (4, 40, 64, 2),
 ]
+# the tiled kernel's: s past 128 (one key past two tiles, the s 256 and s
+# 512 buckets), and head_dim 8 (zero-padded into 16), 16, 96, 128 and 256
+LONG_SHAPES = [
+    (2, 129, 64, 2), (2, 256, 128, 2), (2, 512, 64, 1),
+    (4, 40, 16, 2), (4, 40, 32, 2), (2, 64, 96, 1), (2, 64, 256, 2), (2, 40, 256, 1),
+]
+ATTENTION_SHAPES += LONG_SHAPES
 
 
 @pytest.mark.parametrize("b,s,d,h", ATTENTION_SHAPES)
@@ -81,7 +92,34 @@ def test_reference_attention_bf16_matches_jax(b, s, d, h):
     )
 
 
-@pytest.mark.parametrize("s,d,h", [(16, 32, 4), (40, 128, 2), (100, 64, 2)])
+# the low-precision dtypes as each framework names them
+LOW_DTYPES = {"bf16": (torch.bfloat16, jnp.bfloat16), "f16": (torch.float16, jnp.float16)}
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f16"])
+@pytest.mark.parametrize("b,s,d,h", LONG_SHAPES + [(8, 32, 64, 2), (2, 100, 64, 2)])
+def test_low_precision_attention_matches_the_pallas_kernel(b, s, d, h, dtype):
+    """bf16 and f16, as the CUDA kernel takes them: the port's plain
+    attention against the JAX reference and the Pallas kernel in interpret
+    mode, all three rounding the probabilities and ctx to qkv's dtype; one
+    bf16 ulp at |ctx| < 4 (2**-6) for a flipped rounding."""
+    tdt, jdt = LOW_DTYPES[dtype]
+    qkv, mask = _qkv_case(3, b, s, d)
+    qkv = torch.from_numpy(qkv).to(tdt).float().numpy()
+    port = tattn.reference_attention(torch.from_numpy(qkv).to(tdt), torch.from_numpy(mask), h)
+    ref = jattn.reference_attention(jnp.asarray(qkv, jdt), jnp.asarray(mask), h)
+    pallas = jattn.fused_qkv_attention(
+        jnp.asarray(qkv, jdt), jnp.asarray(mask), h, block_b=2, interpret=True
+    )
+    assert port.dtype == tdt and pallas.dtype == jdt
+    assert np.abs(np.asarray(ref, np.float32)).max() < 4
+    np.testing.assert_allclose(port.float().numpy(), np.asarray(ref, np.float32), atol=2.0**-6)
+    np.testing.assert_allclose(port.float().numpy(), np.asarray(pallas, np.float32), atol=2.0**-6)
+
+
+@pytest.mark.parametrize(
+    "s,d,h", [(16, 32, 4), (40, 128, 2), (100, 64, 2), (200, 64, 2), (300, 96, 1), (512, 128, 8)]
+)
 def test_all_padding_row_is_uniform_mean_of_v(s, d, h):
     """-1e30 on every key gives equal scores: the row attends uniformly
     (the mean of its s keys of v, at a ragged s too), with no NaN, as the
