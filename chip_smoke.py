@@ -79,6 +79,11 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
+# exp2 on the special-function units: 16 results a clock an SM (CUDA C++
+# Programming Guide, arithmetic instruction throughput, compute capability
+# 9.0) x 132 SMs x the H100 SXM's 1980 MHz maximum boost clock; each
+# attention score takes one exp2
+SFU_EXP2_PER_S = 16 * 132 * 1.98e9
 
 FLAGSHIP = dict(
     vocab_size=32768, d_model=384, n_heads=6, n_layers=6, d_ff=1536,
@@ -108,10 +113,16 @@ ATTENTION_SHAPES = [
 ]
 # checked, not timed: the other tilings of the short kernel (s 16 and 32
 # with a batch that is not a multiple of 4, s 128 at dh 64 is its largest
-# tile) and ragged s at both of its head dims; then the tiled kernel:
+# tile) and ragged s at both of its head dims; then the tiled kernels:
 # sequences past 128 (one key past a tile, ragged, and long), every
 # instantiated head width and one that zero-pads (dh 8 into 16), f16 at a
-# ragged s, and f32 at s 512
+# ragged s, and f32 at s 512; then the edges of their 128-query work items
+# and 128-key tiles at dh 64 (s 127 and 128 in f16, since bf16 takes the
+# short kernel there; s 255 and 257), ragged s at dh 256 (64-key tiles)
+# and dh 96 (three 32-column sub-tiles), f16 at s 512, and suffix masks
+# (an optional seventh field; see attention_case) whose rows start with
+# 64 or more padding keys, so that a first key tile of padding only must
+# be wiped by the rescale
 ATTENTION_CHECK_SHAPES = [
     ("s16_dh64", 4097, 16, 384, 6, "bf16"),
     ("s32_dh64", 4097, 32, 384, 6, "bf16"),
@@ -131,6 +142,16 @@ ATTENTION_CHECK_SHAPES = [
     ("f16_s77", 2048, 77, 384, 6, "f16"),
     ("f16_s300", 128, 300, 512, 8, "f16"),
     ("f32_s512", 128, 512, 512, 8, "f32"),
+    ("f16_s127", 64, 127, 512, 8, "f16"),
+    ("f16_s128", 64, 128, 512, 8, "f16"),
+    ("s255", 64, 255, 512, 8, "bf16"),
+    ("s257", 64, 257, 512, 8, "bf16"),
+    ("dh256_s77", 256, 77, 512, 2, "bf16"),
+    ("dh96_s131", 512, 131, 768, 8, "bf16"),
+    ("f16_s512", 128, 512, 512, 8, "f16"),
+    ("suffix_s300", 128, 300, 512, 8, "bf16", "suffix"),
+    ("suffix_s512_f16", 64, 512, 512, 8, "f16", "suffix"),
+    ("suffix_s200_f32", 64, 200, 512, 8, "f32", "suffix"),
 ]
 # every shape is checked on this many seeded inputs, the first one timed
 ATTENTION_SEEDS = 3
@@ -265,6 +286,30 @@ def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
 
 
+def ptxas_report(log: str) -> dict:
+    """`nvcc -Xptxas -v`'s log of a kernel source, by instantiation: its
+    registers a thread, spill bytes and stack frame ("wgmma_attention_kernel
+    <bf16, 64>": ...), and the compiler's advisories (a serialized wgmma
+    pipeline, an injected wait)."""
+    kernels, advisories, name = {}, [], None
+    short = {"13__nv_bfloat16": "bf16", "6__half": "f16"}
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln and "_kernelI" in ln:
+            # the mangled name's last identifier is `<length><name>_kernel`
+            end = ln.index("_kernelI") + len("_kernel")
+            base = next(ln[end - n:end] for n in range(len("_kernel"), end)
+                        if ln[end - n - len(str(n)):end - n] == str(n))
+            args = re.findall(r"13__nv_bfloat16|6__half|(?<=Li)\d+(?=E)", ln[end:].split("EEv")[0] + "E")
+            name = f"{base}<{', '.join(short.get(a, a) for a in args)}>"
+        elif "Potential Performance Loss" in ln or "is injected" in ln:
+            advisories.append(ln.split("ptxas info    : ")[-1][:240])
+        elif name and "bytes stack frame" in ln:
+            kernels[name] = ln.strip()
+        elif name and "Used" in ln and "registers" in ln:
+            kernels[name] = re.search(r"Used \d+ registers", ln).group(0) + "; " + kernels.get(name, "")
+    return {"kernels": kernels, "advisories": advisories}
+
+
 def gpu_name_and_power() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -310,6 +355,12 @@ def host_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def exp_floor_ms(b: int, s: int, h: int) -> float:
+    """Least time the SFU takes for the b*h*s*s exp2 of the scores, in ms;
+    shown beside `attention_bound`, which it does not change."""
+    return b * h * s * s / SFU_EXP2_PER_S * 1e3
+
+
 def attention_bound(b: int, s: int, d: int, h: int, dtype: str = "bf16") -> tuple[float, str, int, int]:
     """Least time the card could take for the kernel's work, in ms: qkv
     and the mask read once, ctx written once (2 or 4 bytes an element),
@@ -331,9 +382,12 @@ TORCH_DTYPES = {"bf16": "bfloat16", "f16": "float16", "f32": "float32"}
 WORD_RE = re.compile(r"[a-z0-9]+", re.IGNORECASE)
 
 
-def attention_case(b: int, s: int, d: int, seed: int, dtype: str = "bf16"):
+def attention_case(b: int, s: int, d: int, seed: int, dtype: str = "bf16", mask_kind: str = "prefix"):
     """Seeded unit-normal qkv in `dtype` and a mask with random lengths,
-    every 97th row all padding (as bucket padding makes)."""
+    every 97th row all padding (as bucket padding makes). A "prefix" mask
+    holds each row's first `len` keys, a "suffix" mask its last `len`, so
+    that most rows start with padding keys (a whole first key tile where
+    len < s - 128)."""
     import torch
 
     dev = torch.device("cuda")
@@ -341,15 +395,21 @@ def attention_case(b: int, s: int, d: int, seed: int, dtype: str = "bf16"):
     qkv = torch.randn((b, s, 3 * d), generator=gen, device=dev).to(getattr(torch, TORCH_DTYPES[dtype]))
     lens = torch.randint(1, s + 1, (b,), generator=gen, device=dev)
     lens[::97] = 0
-    mask = (torch.arange(s, device=dev)[None, :] < lens[:, None]).to(torch.int32)
+    pos = torch.arange(s, device=dev)[None, :]
+    if mask_kind == "suffix":
+        mask = (pos >= s - lens[:, None]).to(torch.int32)
+    else:
+        mask = (pos < lens[:, None]).to(torch.int32)
     return qkv, mask, lens
 
 
-def check_attention(label: str, b: int, s: int, d: int, h: int, dtype: str, seed: int, timed: bool) -> dict:
+def check_attention(label: str, b: int, s: int, d: int, h: int, dtype: str, mask_kind: str = "prefix", *,
+                    seed: int, timed: bool) -> dict:
     """The kernel against its plain version on ATTENTION_SEEDS seeded
-    inputs in `dtype` with random padding and all-padding rows; with
-    `timed`, also the times of the kernel, the plain version and SDPA on
-    the first."""
+    inputs in `dtype` with random padding (a prefix or suffix mask) and
+    all-padding rows; with `timed`, also the times of the kernel, the
+    plain version and SDPA on the first, beside the bound and the exp2
+    floor."""
     import torch
     import torch.nn.functional as F
 
@@ -357,7 +417,7 @@ def check_attention(label: str, b: int, s: int, d: int, h: int, dtype: str, seed
 
     errs, pad_errs, finite, ref_max, n_pad = [], [], True, 0.0, 0
     for i in range(ATTENTION_SEEDS):
-        qkv, mask, lens = attention_case(b, s, d, seed + 1000 * i, dtype)
+        qkv, mask, lens = attention_case(b, s, d, seed + 1000 * i, dtype, mask_kind)
         out = fused_qkv_attention(qkv, mask, h)
         torch.cuda.synchronize()
         ref = reference_attention(qkv, mask, h)
@@ -375,7 +435,7 @@ def check_attention(label: str, b: int, s: int, d: int, h: int, dtype: str, seed
 
     row = dict(
         phase="attention" if timed else "attention_check", shape=label, b=b, s=s, d=d,
-        n_heads=h, dtype=dtype, max_abs_err=err, max_abs_err_by_seed=errs, atol=atol,
+        n_heads=h, dtype=dtype, mask=mask_kind, max_abs_err=err, max_abs_err_by_seed=errs, atol=atol,
         finite=finite, all_padding_rows=n_pad, all_padding_err=pad_err,
     )
     if timed:
@@ -397,8 +457,8 @@ def check_attention(label: str, b: int, s: int, d: int, h: int, dtype: str, seed
         bound_ms, bound_by, nbytes, flops = attention_bound(b, s, d, h, dtype)
         row.update(
             library_err=lib_err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-            bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops,
-            achieved_gb_s=nbytes / (ms * 1e-3) / 1e9,
+            bound_ms=bound_ms, bound_by=bound_by, exp_floor_ms=exp_floor_ms(b, s, h), bytes=nbytes,
+            flops=flops, achieved_gb_s=nbytes / (ms * 1e-3) / 1e9,
         )
         del qkv, mask, ref, q, k, v, bias
     emit(row)
@@ -3062,22 +3122,20 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = _build.build()
     build_s = time.perf_counter() - t0
-    ptxas = {
-        name: [ln.strip() for ln in path.with_suffix(".log").read_text().splitlines()
-               if "registers" in ln or "spill" in ln]
-        for name, path in libs.items()
-    }
+    ptxas = {name: ptxas_report(path.with_suffix(".log").read_text()) for name, path in libs.items()}
     emit(dict(
         phase="device", card=card, kind=torch.cuda.get_device_name(0),
         count=torch.cuda.device_count(), torch=torch.__version__, cuda=torch.version.cuda,
         build_s=build_s, libraries={k: str(v.relative_to(ROOT)) for k, v in libs.items()},
         ptxas=ptxas,
     ))
+    serialized = [a for r in ptxas.values() for a in r["advisories"] if "serialized" in a]
+    if serialized:
+        # the tiled kernel's products would wait for each other
+        raise AssertionError(f"ptxas serializes a wgmma pipeline: {serialized[:3]}")
 
-    rows = [check_attention(label, b, s, d, h, dtype, seed=i, timed=True)
-            for i, (label, b, s, d, h, dtype) in enumerate(ATTENTION_SHAPES)]
-    rows += [check_attention(label, b, s, d, h, dtype, seed=100 + i, timed=False)
-             for i, (label, b, s, d, h, dtype) in enumerate(ATTENTION_CHECK_SHAPES)]
+    rows = [check_attention(*shape, seed=i, timed=True) for i, shape in enumerate(ATTENTION_SHAPES)]
+    rows += [check_attention(*shape, seed=100 + i, timed=False) for i, shape in enumerate(ATTENTION_CHECK_SHAPES)]
     main_shape = rows[0]
 
     result = run_slice("cuda", FLAGSHIP, N_DOCS, DOC_BATCH, DOC_SEQ, ROOT)

@@ -10,22 +10,22 @@
 // slices of qkv [b, s, 3d] (offsets hi*dh, d + hi*dh, 2d + hi*dh);
 // scores = q.k^T / sqrt(dh) + bias, bias 0 for valid keys and -1e30 for
 // padding keys (from the int32 token mask); an f32 softmax; probabilities
-// rounded to qkv's dtype, as the TPU kernel rounds them (at f32 they are
-// not rounded); ctx = p.v accumulated in f32 and written in qkv's dtype
-// into out [b, s, d] at the head's column offset. A row whose keys are all
-// padding sees s equal scores of -1e30 and gets the uniform mean of its s
-// keys of v, never NaN.
+// rounded to qkv's dtype before p.v (at f32 they are not rounded); ctx =
+// p.v accumulated in f32 and written in qkv's dtype into out [b, s, d] at
+// the head's column offset. A row whose keys are all padding sees s equal
+// scores of -1e30 and gets the uniform mean of its s keys of v, never NaN.
 //
-// What bounds it on the H100: bytes, at the encoders' shapes. The kernel
-// must read qkv (b*s*3d elements) and the mask (b*s*4 B) and write ctx
-// (b*s*d elements); the arithmetic is 4*b*h*s*s*dh flops, about 32 per
-// byte at s 64 and 256 at s 512 in bf16, against the ~295 per byte at
-// which the bf16 tensor cores and not the memory would be the limit (f32:
-// 67 TFLOP/s outside the tensor cores, so bytes up to s ~ 64). What the
-// design does about it: every qkv byte a block needs is copied by 16-byte
-// `cp.async.cg` straight from the fused layout into shared memory, the
-// scores and probabilities never leave the registers, and both products
-// run on the tensor cores (`mma.sync`). Two kernels share that design.
+// What bounds it on the H100: bytes at the short buckets, bytes and the
+// exponentials together at the long ones. The kernel must read qkv
+// (b*s*3d elements) and the mask (b*s*4 B) and write ctx (b*s*d elements);
+// the arithmetic is 4*b*h*s*s*dh flops, about 32 per byte at s 64 and 256
+// at s 512 in bf16, against the ~295 per byte at which the bf16 tensor
+// cores and not the memory would be the limit (f32: 67 TFLOP/s outside
+// the tensor cores, so bytes up to s ~ 64); and b*h*s*s exponentials, which
+// the SFU takes at 16 a clock an SM (on an H100 SXM at its 700 W limit and
+// 1980 MHz boost clock, 0.51 ms for the 2.1e9 exp2 of b 1024, s 512, h 8,
+// beside 0.64 ms for that shape's bytes at 3.35 TB/s). Three kernels share
+// the entry point.
 //
 // (1) The short kernel: bf16, head_dim 32 or 64, s <= 128 (the sequence
 // buckets of the flagship and default embedders).
@@ -35,18 +35,18 @@
 //   block has KT warps: warp w owns query rows 16w .. 16w + 15. At s 16
 //   and 32 a block is 1 or 2 warps and many share an SM, so no warp idles
 //   and short sequences keep as many bytes in flight as long ones.
-// - Load: the block copies its q, k and v [SP][dh] into shared memory;
-//   rows past s are zero-filled (cp.async with a source size of 0). Rows
-//   of dh bf16 are 16-byte chunks XOR-swizzled by row, so that the 8 rows
-//   an `ldmatrix` reads hit 8 different bank groups. The key bias goes
+// - Load: the block copies its q, k and v [SP][dh] into shared memory by
+//   16-byte `cp.async`; rows past s are zero-filled (a source size of 0).
+//   Rows of dh bf16 are 16-byte chunks XOR-swizzled by row, so that the 8
+//   rows an `ldmatrix` reads hit 8 different bank groups. The key bias goes
 //   beside them: 0, -1e30 (padding) or -inf (past s, so those keys drop
 //   out of the softmax and an all-padding row still averages exactly its
 //   s keys).
 // - Scores: q A-fragments by `ldmatrix.x4`; k [key][dh] row-major is the
-//   B operand of q.k^T as it lies, also by `ldmatrix.x4`. A 16-row score
-//   tile of SP keys stays in registers (2 * KT accumulator tiles of
-//   m16n8), so the softmax is exact in one pass: row max and sum over the
-//   lane quad with two `__shfl_xor_sync` each.
+//   B operand of q.k^T as it lies, also by `ldmatrix.x4`; `mma.sync`
+//   m16n8k16. A 16-row score tile of SP keys stays in registers (2 * KT
+//   accumulator tiles of m16n8), so the softmax is exact in one pass: row
+//   max and sum over the lane quad with two `__shfl_xor_sync` each.
 // - p.v: the normalised probabilities, rounded to bf16, stay in registers:
 //   two neighbouring m16n8 f32 accumulator tiles are the m16n8k16 A
 //   fragment of one 16-key step. v B-fragments come by `ldmatrix.x4.trans`
@@ -57,30 +57,29 @@
 // Its score tile is 2 * KT accumulators of 4 floats a thread (64 at s
 // 128), and it holds all of the row's q, k and v in shared memory: at s
 // 512 the tile alone would pass the 255 registers a thread may have. So
-// longer sequences take the second kernel.
+// longer sequences take the tiled kernels.
 //
-// (2) The tiled kernel: everything else (s > 128, f16, f32, head widths
-// other than 32 and 64).
-// - Layout. A block takes one (row, head) and 64 queries, 4 warps of 16
-//   query rows; block ((bi * n_heads) + hi) * ceil(s / 64) + query block,
-//   so the blocks that read one head's keys run side by side and find
-//   them in L2. The wrapper checks b * n_heads * ceil(s / 64) < 2^31.
-// - Keys stream through shared memory in tiles of BK keys (64 at 16 bits,
-//   32 at f32), double-buffered with `cp.async`: the next tile's copy is
-//   in flight while the warps compute on this one. Keys past s are
-//   zero-filled and get bias -inf, so they drop out of the softmax. No
-//   [s, s] tile exists anywhere: a warp holds 16 x BK scores.
-// - Rounding: an exact two-pass softmax. Pass 1 walks the key tiles for
-//   each row's max and sum (a running max; the sum is rescaled when the
-//   max rises). Pass 2 walks them again, recomputes the same scores,
-//   normalises them with the final max and sum, rounds the probabilities
-//   to qkv's dtype and multiplies them by v: the probabilities round
-//   where the TPU kernel rounds them, at 1.5 times the q.k^T products of
-//   one pass. (A one-pass online softmax would round probabilities that
-//   are not normalised yet.) The first key tile always holds key 0 < s,
-//   whose score is finite (bias 0 or -1e30), so the running max is finite
-//   from the first tile on, and an all-padding row sums exactly its s keys
-//   across any number of tiles.
+// The tiled kernels (2) and (3): everything else (s > 128, f16, f32, head
+// widths other than 32 and 64). Both take 128 queries of one (row, head) a
+// work item, stream that head's keys once through shared memory in tiles,
+// and keep one online softmax: a running max and sum a row (log2 domain),
+// the f32 ctx accumulator and the sum rescaled by exp2(old max - new max)
+// when the max rises, one exp2 a score, one q.k^T a score, and one
+// division by the sum at the end. No [s, s] tile exists anywhere.
+// - Rounding: the probabilities exp2(score - running max) are rounded to
+//   qkv's dtype before p.v, and the sum adds them unrounded in f32. The
+//   TPU kernel rounds the normalised probability instead; both roundings
+//   are half an ulp relative to the value rounded, and scaling by the sum
+//   afterwards in f32 keeps that relative error, so the two agree to the
+//   order of one flipped rounding (tests/test_torch_attention_tiling.py
+//   holds a plain emulation of this arithmetic to the Pallas kernel). At
+//   f32 nothing is rounded and the function is the same.
+// - Key 0 < s lies in the first tile, and its score is finite (bias 0 or
+//   -1e30), so the running max is finite from the first tile on. A first
+//   tile of padding only (max -1e30) is wiped by the rescale exp2(-1e30 -
+//   max) = 0 once a valid key raises the max, and an all-padding row sums
+//   exactly its s keys across any number of tiles. Keys past s (-inf)
+//   give exp2(-inf) = 0.
 // - Head widths: instantiated at DHP 16, 32, 64, 96, 128 and 256. Any
 //   other dh that is a multiple of 8 runs in the next DHP with its columns
 //   past dh zero-filled in shared memory: zero columns of q and k leave
@@ -88,28 +87,85 @@
 //   never stored. A dh that is not a multiple of 8 breaks the 16-byte
 //   alignment of head offsets in the fused layout, and dh > 256 has no
 //   instantiation: the wrapper raises for both.
-// - Shared-memory rows are padded by one 16-byte chunk (a stride of DHP +
-//   16 / sizeof(T) elements): at every DHP the 8 rows one `ldmatrix` reads
-//   fall into 8 different bank groups, and the f32 fragment reads into 32
-//   different banks.
-// - bf16 and f16: `ldmatrix` fragments and `mma.sync` m16n8k16 (f16 is the
-//   bf16 code with f16 products); q's fragments stay in registers up to
-//   DHP 128 and are read again from shared memory at 256, where the 128
-//   f32 accumulators of ctx take the registers.
-// - f32, in full f32: each product is a 3xTF32 split on the tensor cores.
-//   x = big + small, big = tf32(x), small = tf32(x - big), and a.b is
-//   taken as small.big + big.small + big.big (`mma.sync` m16n8k8 .tf32
-//   with f32 sums); what is left out, small.small, is ~2^-22 of a
-//   product. The probabilities are split the same way and never rounded
-//   to 16 bits. The accumulator layout of the scores serves as the A
-//   fragment of p.v once the 8 keys of each k-step are permuted (k-index
-//   t <-> key 2t, t + 4 <-> key 2t + 1), and v's rows are read in the same
-//   permuted order.
+//
+// (2) f32, in full f32, on `mma.sync`: 8 warps of 16 query rows, block
+// ((bi * n_heads) + hi) * ceil(s / 128) + query block. Key tiles of BK
+// keys (32; 16 at DHP 256, where q's 128 rows take 133 KB) are
+// double-buffered in shared memory by `cp.async` under two block barriers
+// a tile; rows are padded by one 16-byte chunk (a stride of DHP + 4
+// floats), so the fragment reads fall into 32 different banks. Each
+// product is a 3xTF32 split on the tensor cores: x = big + small, big =
+// tf32(x), small = tf32(x - big), and a.b is taken as small.big +
+// big.small + big.big (m16n8k8 .tf32 with f32 sums); what is left out,
+// small.small, is ~2^-22 of a product. The accumulator layout of the
+// scores serves as the A fragment of p.v once the 8 keys of each k-step
+// are permuted (k-index t <-> key 2t, t + 4 <-> key 2t + 1), and v's rows
+// are read in the same permuted order. A warp whose rows all lie past s
+// (s <= 64 leaves four) loads with the block and computes nothing.
+//
+// (3) bf16 and f16 on `wgmma`, fed by the TMA. A persistent grid, one
+// block an SM, walks the work items (row, head, 128 queries) in steps of
+// the grid; the items of one head sit side by side, so the blocks that
+// read one head's keys run together and find them in L2. A block is three
+// warpgroups; `setmaxnreg` moves registers from the producer's (24 a
+// thread) to the consumers' (240).
+// - One producer warp. For each item its lane 0 copies q (two buffers
+//   where shared memory allows, so the next item's q lands while this one
+//   runs; q is released once the item's last q.k^T is done), then each key
+//   tile's k and v into two rings of 2-3 stages, with
+//   4-d TMA boxes of the map {column, head slot, row, batch row} over the
+//   fused layout (strides 2dh, 6d and 6sd bytes, all multiples of 16):
+//   columns past dh and rows past s arrive as zeros. Its lanes build the
+//   tile's key bias in f32 (0, -1e30 or -inf), once a block, and flag a
+//   tile that holds no padding key and no key past s. `mbarrier`s track
+//   the rings: full (the copies' bytes, and for k the 32 lanes' bias) and
+//   empty (one arrival a consumer warp); k is released after the softmax
+//   that reads its bias, v after the product that reads it.
+// - Two consumer warpgroups of 64 query rows. Scores are m64nBKk16 `wgmma`
+//   products of q and k straight from shared memory (both K-major:
+//   head_dim contiguous) into BK / 2 f32 registers a thread; the
+//   probabilities, rounded to T, stay in registers as the A operand of
+//   the p.v `wgmma` (m64nWk16 a sub-tile of W columns), whose B operand is
+//   v [key][dh] in shared memory, MN-major. Row max and sum over the lane
+//   quad. Each step issues the next key tile's scores (of this item or,
+//   after its last tile, of the block's next item) together with this
+//   tile's p.v, and runs the next tile's softmax while the tensor cores
+//   finish that product, so the pipeline runs on across items. A
+//   flagged tile skips its bias: the max runs over the raw scores and the
+//   scale folds into the exp2's argument (one FFMA a score fewer). The
+//   code from each issue to its wait is straight-line and the roles are
+//   warp-uniform (the warp index is broadcast from lane 0): ptxas
+//   serializes the wgmma pipeline otherwise (advisories C7514-C7518),
+//   which chip_smoke.py's `device` phase refuses.
+// - Shared memory: every operand lies in sub-tiles of W columns (W = 64
+//   at DHP 64, 128 and 256; 32 at DHP 32 and 96; 16 at DHP 16) whose rows
+//   are 2W bytes, swizzled by the TMA at that span (128, 64 or 32 bytes:
+//   16-byte chunks XOR the row within the 8-row group) and described to
+//   `wgmma` with the same swizzle, 8-row groups 16W bytes apart. A k-step
+//   of q.k^T advances 32 bytes inside a row; a key step of p.v advances 16
+//   rows.
+// - Tiles: BK 128 keys, 3 stages up to DHP 96, 2 at DHP 128; BK 64, 2
+//   stages and one q buffer at DHP 256 (ctx alone is 128 f32 registers a
+//   thread there). Every width runs this kernel; none keeps the two-pass
+//   code.
+// - Store: ctx / sum in T straight from the registers: neighbouring lanes
+//   swap one column pair, so each stores 8 bytes and a warp's store fills
+//   whole 32-byte sectors (4-byte stores, which fill half sectors, were
+//   slower at every timed row; staging in shared memory and a TMA store
+//   gained nothing measurable); rows past s and columns past dh are never
+//   written. A warpgroup whose rows all lie past s (s % 128 in 1..64)
+//   computes on zero rows and stores nothing.
+// - What limits it (chip_smoke.py and scripts/attention_variants.py on
+//   the H100; PERF.md): at s 256 and 512, dh 64, the softmax's arithmetic
+//   and the stores of ctx on top of the product pipeline, not L2 (keys
+//   copied once a head read no faster); at s 128, dh 128, the bytes.
 //
 // Built by pathway_tpu_torch/ops/_build.py with nvcc into a shared library
 // with a plain C interface, called through ctypes from
 // pathway_tpu_torch/ops/attention.py.
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -117,6 +173,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "wgmma.cuh"
 
 namespace {
 
@@ -375,28 +433,9 @@ int launch_dh(const void* qkv, const void* mask, void* out, int b, int s, int d,
 }
 
 
-// ------------------------------------------------------------ the tiled kernel
+// ----------------------------------------------------------- the tiled kernels
 
-constexpr int kTiledWarps = 4;
-constexpr int kBQ = 16 * kTiledWarps;  // queries a block
-constexpr int kThreads = 32 * kTiledWarps;
-
-template <typename T, int DHP>
-struct Tiled {
-  static constexpr bool kF32 = std::is_same<T, float>::value;
-  static constexpr int EPC = 16 / int(sizeof(T));  // elements of a 16-byte chunk
-  static constexpr int BK = kF32 ? 32 : 64;        // keys a tile
-  static constexpr int LD = DHP + EPC;             // row stride: one spare chunk a row
-  static constexpr int CPR = DHP / EPC;            // chunks of a row
-  static constexpr int NT = BK / 8;                // n-tiles of a warp's score tile
-  static constexpr int NN = DHP / 8;               // n-tiles of a warp's ctx
-  static constexpr bool KEEP_Q = !kF32 && DHP <= 128;  // q fragments in registers
-  // q [kBQ][LD], k and v [2][BK][LD], the mask [2][BK]
-  static constexpr size_t smem =
-      (size_t(kBQ) + 4 * BK) * LD * sizeof(T) + 2 * BK * sizeof(int32_t);
-  static_assert(DHP % 16 == 0 && DHP <= 256, "DHP a multiple of 16 up to 256");
-  static_assert(smem <= 232448, "a block's shared memory on the H100");
-};
+constexpr int kBQ = 128;  // queries a block (a work item) of either tiled kernel
 
 __device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src, int src_bytes) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
@@ -413,25 +452,6 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-__device__ __forceinline__ void mma_f16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                        uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-template <typename T>
-__device__ __forceinline__ void mma16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                      uint32_t b1) {
-  if constexpr (std::is_same<T, __half>::value) {
-    mma_f16(c, a, b0, b1);
-  } else {
-    mma_bf16(c, a, b0, b1);
-  }
-}
-
 template <typename T>
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   if constexpr (std::is_same<T, __half>::value) {
@@ -442,15 +462,23 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   }
 }
 
-// two neighbouring ctx values into shared memory in T
-template <typename T>
-__device__ __forceinline__ void store2(T* p, float lo, float hi) {
-  if constexpr (std::is_same<T, float>::value) {
-    *reinterpret_cast<float2*>(p) = make_float2(lo, hi);
-  } else {
-    *reinterpret_cast<uint32_t*>(p) = pack2<T>(lo, hi);
-  }
-}
+// ----------------------------------------- (2) f32: 3xTF32 on `mma.sync`
+
+constexpr int kF32Warps = kBQ / 16;
+constexpr int kF32Threads = 32 * kF32Warps;
+
+template <int DHP>
+struct TiledF32 {
+  static constexpr int BK = DHP >= 256 ? 16 : 32;  // keys a tile
+  static constexpr int LD = DHP + 4;               // row stride: one spare chunk a row
+  static constexpr int CPR = DHP / 4;              // 16-byte chunks of a row
+  static constexpr int NT = BK / 8;                // n-tiles of a warp's score tile
+  static constexpr int NN = DHP / 8;               // n-tiles of a warp's ctx
+  // q [kBQ][LD], k and v [2][BK][LD], the mask [2][BK]
+  static constexpr size_t smem = (size_t(kBQ) + 4 * BK) * LD * 4 + 2 * BK * 4;
+  static_assert(DHP % 16 == 0 && DHP <= 256, "DHP a multiple of 16 up to 256");
+  static_assert(smem <= 232448, "a block's shared memory on the H100");
+};
 
 // x = big + small, both tf32 (an f32 bit pattern with the low 13 bits zero)
 __device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
@@ -479,35 +507,35 @@ __device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ab)[4
 // Rows r0 .. r0 + ROWS - 1 of one of q, k, v (columns from `col0`: 0, d or
 // 2d) of the head into dst [ROWS][LD]; rows past s and chunks past the
 // head's own `cpr` chunks are zero-filled.
-template <typename T, int DHP, int ROWS>
-__device__ __forceinline__ void load_rows(T* dst, const T* head, size_t row_stride, int col0,
-                                          int r0, int s, int cpr, int tid) {
-  using C = Tiled<T, DHP>;
-  for (int c = tid; c < ROWS * C::CPR; c += kThreads) {
+template <int DHP, int ROWS>
+__device__ __forceinline__ void load_rows_f32(float* dst, const float* head, size_t row_stride,
+                                              int col0, int r0, int s, int cpr, int tid) {
+  using C = TiledF32<DHP>;
+  for (int c = tid; c < ROWS * C::CPR; c += kF32Threads) {
     const int r = c / C::CPR;
     const int ch = c - r * C::CPR;
     const bool in = r0 + r < s && ch < cpr;
-    const T* src = in ? head + size_t(r0 + r) * row_stride + col0 + ch * C::EPC : head;
-    cp_async_16(smem_addr(dst + r * C::LD + ch * C::EPC), src, in ? 16 : 0);
+    const float* src = in ? head + size_t(r0 + r) * row_stride + col0 + ch * 4 : head;
+    cp_async_16(smem_addr(dst + r * C::LD + ch * 4), src, in ? 16 : 0);
   }
 }
 
-template <typename T, int DHP>
-__global__ void __launch_bounds__(kThreads)
-    tiled_attention_kernel(const T* __restrict__ qkv, const int32_t* __restrict__ mask,
-                           T* __restrict__ out, int s, int d, int n_heads, int dh, int n_qb,
-                           float scale_log2) {
-  using C = Tiled<T, DHP>;
+template <int DHP>
+__global__ void __launch_bounds__(kF32Threads)
+    tiled_f32_kernel(const float* __restrict__ qkv, const int32_t* __restrict__ mask,
+                     float* __restrict__ out, int s, int d, int n_heads, int dh, int n_qb,
+                     float scale_log2) {
+  using C = TiledF32<DHP>;
   constexpr int BK = C::BK;
   constexpr int LD = C::LD;
   constexpr int NT = C::NT;
   constexpr int NN = C::NN;
 
   extern __shared__ __align__(128) unsigned char smem[];
-  T* q_s = reinterpret_cast<T*>(smem);                             // [kBQ][LD]
-  T* k_s = q_s + kBQ * LD;                                         // [2][BK][LD]
-  T* v_s = k_s + 2 * BK * LD;                                      // [2][BK][LD]
-  int32_t* m_s = reinterpret_cast<int32_t*>(v_s + 2 * BK * LD);  // [2][BK]
+  float* q_s = reinterpret_cast<float*>(smem);                       // [kBQ][LD]
+  float* k_s = q_s + kBQ * LD;                                       // [2][BK][LD]
+  float* v_s = k_s + 2 * BK * LD;                                    // [2][BK][LD]
+  int32_t* m_s = reinterpret_cast<int32_t*>(v_s + 2 * BK * LD);    // [2][BK]
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
@@ -520,93 +548,59 @@ __global__ void __launch_bounds__(kThreads)
   const int hi = bh - bi * n_heads;
   const int q0 = qb * kBQ;
   const size_t row_stride = size_t(3) * d;
-  const T* head = qkv + size_t(bi) * s * row_stride + size_t(hi) * dh;
+  const float* head = qkv + size_t(bi) * s * row_stride + size_t(hi) * dh;
   const int32_t* mrow = mask + size_t(bi) * s;
-  const int cpr = dh / C::EPC;
+  const int cpr = dh / 4;
   const int n_kt = (s + BK - 1) / BK;
-  const int total = 2 * n_kt;
+  // a warp whose 16 query rows all lie past s loads and waits with the
+  // block but computes nothing (at s 64, half the block)
+  const bool active = q0 + warp * 16 < s;
 
-  // step i < n_kt: pass 1 over key tile i (k and the mask); step n_kt + i:
-  // pass 2 over key tile i (k, v and the mask); buffer step & 1
-  auto load_step = [&](int step) {
-    const int buf = step & 1;
-    const bool pass2 = step >= n_kt;
-    const int k0 = (pass2 ? step - n_kt : step) * BK;
-    load_rows<T, DHP, BK>(k_s + buf * BK * LD, head, row_stride, d, k0, s, cpr, tid);
-    if (pass2) load_rows<T, DHP, BK>(v_s + buf * BK * LD, head, row_stride, 2 * d, k0, s, cpr, tid);
-    for (int j = tid; j < BK; j += kThreads) {
+  // key tile t into buffer t & 1: k, v and the mask
+  auto load_tile = [&](int t) {
+    const int buf = t & 1;
+    const int k0 = t * BK;
+    load_rows_f32<DHP, BK>(k_s + buf * BK * LD, head, row_stride, d, k0, s, cpr, tid);
+    load_rows_f32<DHP, BK>(v_s + buf * BK * LD, head, row_stride, 2 * d, k0, s, cpr, tid);
+    for (int j = tid; j < BK; j += kF32Threads) {
       const bool in = k0 + j < s;
       cp_async_4(smem_addr(m_s + buf * BK + j), in ? mrow + k0 + j : mrow, in ? 4 : 0);
     }
     cp_async_commit();
   };
 
-  load_rows<T, DHP, kBQ>(q_s, head, row_stride, 0, q0, s, cpr, tid);
+  load_rows_f32<DHP, kBQ>(q_s, head, row_stride, 0, q0, s, cpr, tid);
   cp_async_commit();
-  load_step(0);
-  cp_async_wait<1>();  // q has landed
-  __syncthreads();
+  load_tile(0);
 
-  const T* q_w = q_s + warp * 16 * LD;  // this warp's 16 query rows
-  // 16-bit q A-fragments: matrix (lane >> 3) is rows +0/+8 (bit 0), k +0/+8 (bit 1)
-  const int qr = (lane & 7) + ((lane >> 3) & 1) * 8;
-  uint32_t qf[C::KEEP_Q ? DHP / 16 : 1][4];
-  if constexpr (C::KEEP_Q) {
-#pragma unroll
-    for (int ks = 0; ks < DHP / 16; ++ks) {
-      ldmatrix_x4(qf[ks], smem_addr(q_w + qr * LD + (2 * ks + (lane >> 4)) * 8));
-    }
-  }
-
+  const float* q_w = q_s + warp * 16 * LD;  // this warp's 16 query rows
   // rows g and g + 8, log2 domain: running max, this thread's share of the sum
   float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F;
   float l0 = 0.0f, l1 = 0.0f;
-  float inv0 = 0.0f, inv1 = 0.0f;
   float o[NN][4];
 #pragma unroll
   for (int n = 0; n < NN; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
 
-  for (int step = 0; step < total; ++step) {
-    const int buf = step & 1;
-    if (step + 1 < total) {
-      load_step(step + 1);
+  for (int t = 0; t < n_kt; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < n_kt) {
+      load_tile(t + 1);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const bool pass2 = step >= n_kt;
-    const int k0 = (pass2 ? step - n_kt : step) * BK;
-    const T* k_t = k_s + buf * BK * LD;
-    const T* v_t = v_s + buf * BK * LD;
-    const int32_t* m_t = m_s + buf * BK;
+    if (active) {
+      const int k0 = t * BK;
+      const float* k_t = k_s + buf * BK * LD;
+      const float* v_t = v_s + buf * BK * LD;
+      const int32_t* m_t = m_s + buf * BK;
 
-    // scores of the warp's 16 rows against the tile's BK keys: n-tile t
-    // covers keys 8t .. 8t + 7
-    float sc[NT][4];
+      // scores of the warp's 16 rows against the tile's BK keys: n-tile t
+      // covers keys 8t .. 8t + 7
+      float sc[NT][4];
 #pragma unroll
-    for (int t = 0; t < NT; ++t) sc[t][0] = sc[t][1] = sc[t][2] = sc[t][3] = 0.0f;
-    if constexpr (!C::kF32) {
-#pragma unroll
-      for (int ks = 0; ks < DHP / 16; ++ks) {
-        uint32_t a[4];
-        if constexpr (C::KEEP_Q) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) a[i] = qf[ks][i];
-        } else {
-          ldmatrix_x4(a, smem_addr(q_w + qr * LD + (2 * ks + (lane >> 4)) * 8));
-        }
-#pragma unroll
-        for (int p = 0; p < BK / 16; ++p) {
-          // matrices: keys +0 (k lo, k hi), keys +8 (k lo, k hi)
-          uint32_t kb[4];
-          const int r = 16 * p + (lane & 7) + (lane >> 4) * 8;
-          ldmatrix_x4(kb, smem_addr(k_t + r * LD + (2 * ks + ((lane >> 3) & 1)) * 8));
-          mma16<T>(sc[2 * p], a, kb[0], kb[1]);
-          mma16<T>(sc[2 * p + 1], a, kb[2], kb[3]);
-        }
-      }
-    } else {
+      for (int n = 0; n < NT; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.0f;
 #pragma unroll
       for (int ks = 0; ks < DHP / 8; ++ks) {
         // A (16 x 8): (g, t4), (g + 8, t4), (g, t4 + 4), (g + 8, t4 + 4)
@@ -617,167 +611,715 @@ __global__ void __launch_bounds__(kThreads)
         split_tf32(qp[4], ab[2], as[2]);
         split_tf32(qp[8 * LD + 4], ab[3], as[3]);
 #pragma unroll
-        for (int t = 0; t < NT; ++t) {
+        for (int n = 0; n < NT; ++n) {
           // B (8 x 8, k = dh, n = key): (t4, g), (t4 + 4, g)
-          const float* kp = k_t + (8 * t + g) * LD + 8 * ks + t4;
+          const float* kp = k_t + (8 * n + g) * LD + 8 * ks + t4;
           uint32_t bb0, bs0, bb1, bs1;
           split_tf32(kp[0], bb0, bs0);
           split_tf32(kp[4], bb1, bs1);
-          mma_3xtf32(sc[t], ab, as, bb0, bb1, bs0, bs1);
+          mma_3xtf32(sc[n], ab, as, bb0, bb1, bs0, bs1);
         }
       }
-    }
 
-    // scale and key bias, in the log2 domain: 0, -1e30 (padding) or -inf
-    // (past s); -1e30 and -inf pass through the scale unchanged
-#pragma unroll
-    for (int t = 0; t < NT; ++t) {
-      const int j = 8 * t + 2 * t4;
-      const float b0 = k0 + j < s ? (m_t[j] == 0 ? -1e30f : 0.0f) : -CUDART_INF_F;
-      const float b1 = k0 + j + 1 < s ? (m_t[j + 1] == 0 ? -1e30f : 0.0f) : -CUDART_INF_F;
-      sc[t][0] = fmaf(sc[t][0], scale_log2, b0);
-      sc[t][1] = fmaf(sc[t][1], scale_log2, b1);
-      sc[t][2] = fmaf(sc[t][2], scale_log2, b0);
-      sc[t][3] = fmaf(sc[t][3], scale_log2, b1);
-    }
-
-    if (!pass2) {
-      // pass 1: running max over the lane quad, the sum rescaled to it
+      // scale and key bias, in the log2 domain: 0, -1e30 (padding) or
+      // -inf (past s); then the running max over the lane quad
       float mx0 = m0, mx1 = m1;
 #pragma unroll
-      for (int t = 0; t < NT; ++t) {
-        mx0 = fmaxf(mx0, fmaxf(sc[t][0], sc[t][1]));
-        mx1 = fmaxf(mx1, fmaxf(sc[t][2], sc[t][3]));
+      for (int n = 0; n < NT; ++n) {
+        const int j = 8 * n + 2 * t4;
+        const float b0 = k0 + j < s ? (m_t[j] == 0 ? -1e30f : 0.0f) : -CUDART_INF_F;
+        const float b1 = k0 + j + 1 < s ? (m_t[j + 1] == 0 ? -1e30f : 0.0f) : -CUDART_INF_F;
+        sc[n][0] = fmaf(sc[n][0], scale_log2, b0);
+        sc[n][1] = fmaf(sc[n][1], scale_log2, b1);
+        sc[n][2] = fmaf(sc[n][2], scale_log2, b0);
+        sc[n][3] = fmaf(sc[n][3], scale_log2, b1);
+        mx0 = fmaxf(mx0, fmaxf(sc[n][0], sc[n][1]));
+        mx1 = fmaxf(mx1, fmaxf(sc[n][2], sc[n][3]));
       }
 #pragma unroll
       for (int x = 1; x <= 2; x <<= 1) {
         mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, x));
         mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, x));
       }
-      // finite from the first tile on (key 0 < s): exp2(-inf - mx) is 0
-      l0 *= exp2_approx(m0 - mx0);
-      l1 *= exp2_approx(m1 - mx1);
-#pragma unroll
-      for (int t = 0; t < NT; ++t) {
-        l0 += exp2_approx(sc[t][0] - mx0) + exp2_approx(sc[t][1] - mx0);
-        l1 += exp2_approx(sc[t][2] - mx1) + exp2_approx(sc[t][3] - mx1);
-      }
+      // the max is finite from the first tile on (key 0 < s); the old sums
+      // rescale to the new max (exp2(-inf) = 0 on the first tile)
+      const float c0 = exp2_approx(m0 - mx0), c1 = exp2_approx(m1 - mx1);
       m0 = mx0;
       m1 = mx1;
-    } else {
-      if (step == n_kt) {
-        // the sums over the lane quad, once
+      l0 *= c0;
+      l1 *= c1;
 #pragma unroll
-        for (int x = 1; x <= 2; x <<= 1) {
-          l0 += __shfl_xor_sync(0xffffffffu, l0, x);
-          l1 += __shfl_xor_sync(0xffffffffu, l1, x);
-        }
-        inv0 = 1.0f / l0;
-        inv1 = 1.0f / l1;
+      for (int n = 0; n < NN; ++n) {
+        o[n][0] *= c0;
+        o[n][1] *= c0;
+        o[n][2] *= c1;
+        o[n][3] *= c1;
       }
-      // pass 2: normalised probabilities times v; n-tile n of ctx covers
-      // columns 8n .. 8n + 7
-      if constexpr (!C::kF32) {
+
+      // p.v, in full f32: the 8 keys of n-tile n as one k-step, permuted:
+      // k-index t4 is key 8n + 2t4, k-index t4 + 4 is key 8n + 2t4 + 1
 #pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) {
-          // rounded to T: the A fragment of key step kk is n-tiles 2kk
-          // (a0, a1) and 2kk + 1 (a2, a3)
-          uint32_t pa[4];
-          pa[0] = pack2<T>(exp2_approx(sc[2 * kk][0] - m0) * inv0,
-                           exp2_approx(sc[2 * kk][1] - m0) * inv0);
-          pa[1] = pack2<T>(exp2_approx(sc[2 * kk][2] - m1) * inv1,
-                           exp2_approx(sc[2 * kk][3] - m1) * inv1);
-          pa[2] = pack2<T>(exp2_approx(sc[2 * kk + 1][0] - m0) * inv0,
-                           exp2_approx(sc[2 * kk + 1][1] - m0) * inv0);
-          pa[3] = pack2<T>(exp2_approx(sc[2 * kk + 1][2] - m1) * inv1,
-                           exp2_approx(sc[2 * kk + 1][3] - m1) * inv1);
+      for (int n = 0; n < NT; ++n) {
+        const float p0 = exp2_approx(sc[n][0] - m0), p1 = exp2_approx(sc[n][1] - m0);
+        const float p2 = exp2_approx(sc[n][2] - m1), p3 = exp2_approx(sc[n][3] - m1);
+        l0 += p0 + p1;
+        l1 += p2 + p3;
+        uint32_t ab[4], as[4];
+        split_tf32(p0, ab[0], as[0]);  // (g, key 2t4)
+        split_tf32(p2, ab[1], as[1]);  // (g + 8, key 2t4)
+        split_tf32(p1, ab[2], as[2]);  // (g, key 2t4 + 1)
+        split_tf32(p3, ab[3], as[3]);  // (g + 8, key 2t4 + 1)
+        const float* vp = v_t + (8 * n + 2 * t4) * LD + g;
 #pragma unroll
-          for (int np = 0; np < DHP / 16; ++np) {
-            // transposed matrices: keys +0 / +8 (bit 0), columns +0 / +8 (bit 1)
-            uint32_t vb[4];
-            const int r = 16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8;
-            ldmatrix_x4_trans(vb, smem_addr(v_t + r * LD + (2 * np + (lane >> 4)) * 8));
-            mma16<T>(o[2 * np], pa, vb[0], vb[1]);
-            mma16<T>(o[2 * np + 1], pa, vb[2], vb[3]);
-          }
-        }
-      } else {
-#pragma unroll
-        for (int t = 0; t < NT; ++t) {
-          // the 8 keys of n-tile t as one k-step, permuted: k-index t4 is
-          // key 8t + 2t4, k-index t4 + 4 is key 8t + 2t4 + 1
-          uint32_t ab[4], as[4];
-          split_tf32(exp2_approx(sc[t][0] - m0) * inv0, ab[0], as[0]);  // (g, key 2t4)
-          split_tf32(exp2_approx(sc[t][2] - m1) * inv1, ab[1], as[1]);  // (g + 8, key 2t4)
-          split_tf32(exp2_approx(sc[t][1] - m0) * inv0, ab[2], as[2]);  // (g, key 2t4 + 1)
-          split_tf32(exp2_approx(sc[t][3] - m1) * inv1, ab[3], as[3]);  // (g + 8, key 2t4 + 1)
-          const float* vp = v_t + (8 * t + 2 * t4) * LD + g;
-#pragma unroll
-          for (int n = 0; n < NN; ++n) {
-            // B (k = key, n = column): (key 2t4, 8n + g), (key 2t4 + 1, 8n + g)
-            uint32_t bb0, bs0, bb1, bs1;
-            split_tf32(vp[8 * n], bb0, bs0);
-            split_tf32(vp[LD + 8 * n], bb1, bs1);
-            mma_3xtf32(o[n], ab, as, bb0, bb1, bs0, bs1);
-          }
+        for (int c = 0; c < NN; ++c) {
+          // B (k = key, n = column): (key 2t4, 8c + g), (key 2t4 + 1, 8c + g)
+          uint32_t bb0, bs0, bb1, bs1;
+          split_tf32(vp[8 * c], bb0, bs0);
+          split_tf32(vp[LD + 8 * c], bb1, bs1);
+          mma_3xtf32(o[c], ab, as, bb0, bb1, bs0, bs1);
         }
       }
     }
     __syncthreads();  // before the next prefetch overwrites this buffer
   }
+  if (!active) return;  // no block barrier follows
 
-  // ---- store: ctx in T into this warp's q rows (no warp reads q any
+  // ---- store: ctx / sum into this warp's q rows (no warp reads q any
   // more), then 16-byte stores of the head's own chunks; rows past s are
   // never written
-  T* st = q_s + warp * 16 * LD;
+#pragma unroll
+  for (int x = 1; x <= 2; x <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, x);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, x);
+  }
+  const float inv0 = 1.0f / l0, inv1 = 1.0f / l1;
+  float* st = q_s + warp * 16 * LD;
 #pragma unroll
   for (int n = 0; n < NN; ++n) {
-    store2<T>(st + g * LD + 8 * n + 2 * t4, o[n][0], o[n][1]);
-    store2<T>(st + (g + 8) * LD + 8 * n + 2 * t4, o[n][2], o[n][3]);
+    *reinterpret_cast<float2*>(st + g * LD + 8 * n + 2 * t4) = make_float2(o[n][0] * inv0, o[n][1] * inv0);
+    *reinterpret_cast<float2*>(st + (g + 8) * LD + 8 * n + 2 * t4) =
+        make_float2(o[n][2] * inv1, o[n][3] * inv1);
   }
   __syncwarp();
-  T* out_h = out + size_t(bi) * s * d + size_t(hi) * dh;
+  float* out_h = out + size_t(bi) * s * d + size_t(hi) * dh;
   for (int c = lane; c < 16 * cpr; c += 32) {
     const int r = c / cpr;
     const int ch = c - r * cpr;
     const int row = q0 + warp * 16 + r;
     if (row < s) {
-      *reinterpret_cast<uint4*>(out_h + size_t(row) * d + ch * C::EPC) =
-          *reinterpret_cast<const uint4*>(st + r * LD + ch * C::EPC);
+      *reinterpret_cast<uint4*>(out_h + size_t(row) * d + ch * 4) =
+          *reinterpret_cast<const uint4*>(st + r * LD + ch * 4);
     }
   }
 }
 
-template <typename T, int DHP>
-int launch_tiled(const void* qkv, const void* mask, void* out, int b, int s, int d, int n_heads,
-                 float scale, cudaStream_t stream) {
-  using C = Tiled<T, DHP>;
+template <int DHP>
+int launch_f32(const void* qkv, const void* mask, void* out, int b, int s, int d, int n_heads,
+               float scale, cudaStream_t stream) {
+  using C = TiledF32<DHP>;
   const int n_qb = (s + kBQ - 1) / kBQ;
   const long long blocks = static_cast<long long>(b) * n_heads * n_qb;
   if (blocks >= (1ll << 31)) return int(cudaErrorInvalidConfiguration);
   if (C::smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(tiled_attention_kernel<T, DHP>,
+    const cudaError_t e = cudaFuncSetAttribute(tiled_f32_kernel<DHP>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                int(C::smem));
     if (e != cudaSuccess) return int(e);
   }
-  tiled_attention_kernel<T, DHP><<<unsigned(blocks), kThreads, C::smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<const int32_t*>(mask), static_cast<T*>(out), s, d,
-      n_heads, d / n_heads, n_qb, scale * kLog2e);
+  tiled_f32_kernel<DHP><<<unsigned(blocks), kF32Threads, C::smem, stream>>>(
+      static_cast<const float*>(qkv), static_cast<const int32_t*>(mask), static_cast<float*>(out),
+      s, d, n_heads, d / n_heads, n_qb, scale * kLog2e);
+  return int(cudaGetLastError());
+}
+
+int launch_f32_dh(const void* qkv, const void* mask, void* out, int b, int s, int d, int n_heads,
+                  float scale, cudaStream_t stream) {
+  const int dh = d / n_heads;
+  if (dh <= 16) return launch_f32<16>(qkv, mask, out, b, s, d, n_heads, scale, stream);
+  if (dh <= 32) return launch_f32<32>(qkv, mask, out, b, s, d, n_heads, scale, stream);
+  if (dh <= 64) return launch_f32<64>(qkv, mask, out, b, s, d, n_heads, scale, stream);
+  if (dh <= 96) return launch_f32<96>(qkv, mask, out, b, s, d, n_heads, scale, stream);
+  if (dh <= 128) return launch_f32<128>(qkv, mask, out, b, s, d, n_heads, scale, stream);
+  return launch_f32<256>(qkv, mask, out, b, s, d, n_heads, scale, stream);
+}
+
+// ------------------------------- (3) bf16 and f16: `wgmma`, TMA, one pass
+
+constexpr int kConsumers = 2;                  // warpgroups of 64 query rows
+constexpr int kProducerWarp = 4 * kConsumers;  // the warp that issues the copies
+constexpr int kWgThreads = 128 * (kConsumers + 1);
+// registers a thread after the split: the producer's warpgroup gives up
+// what the consumers take (168 each at launch for 384 threads; 128 x 24 +
+// 256 x 240 fits the SM's 65,536)
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+// launch error codes past CUDA's own: the CUDA driver's tensor-map encoder is
+// missing, or refused the map (kTensorMapError + its CUresult)
+constexpr int kNoEncoder = 999;
+constexpr int kTensorMapError = 1000;
+
+template <int DHP>
+struct Wg {
+  // columns of one sub-tile: its rows are SB = 2W bytes, the swizzle span
+  // of the TMA copy and of the wgmma descriptors (32, 64 or 128 bytes)
+  static constexpr int W = DHP == 16 ? 16 : (DHP == 32 || DHP == 96) ? 32 : 64;
+  static constexpr int SB = 2 * W;
+  static constexpr int NSUB = DHP / W;
+  static constexpr int BK = DHP >= 256 ? 64 : 128;   // keys a tile
+  static constexpr int STAGES = DHP >= 128 ? 2 : 3;  // k tiles and v tiles in flight
+  static constexpr uint32_t Q_BYTES = kBQ * DHP * 2;  // one q buffer
+  static constexpr uint32_t KV_BYTES = BK * DHP * 2;  // one k (or v) tile
+  // two q buffers (the next work item's q lands while this one runs)
+  // where they fit beside the rings, the bias, the barriers and the
+  // alignment's slack; one at DHP 256
+  static constexpr int QBUF = 2 * Q_BYTES + 2 * STAGES * KV_BYTES + 8192 <= 232448 ? 2 : 1;
+  // from a 1024-byte aligned base: q [QBUF][NSUB][kBQ][W]; k [STAGES][NSUB]
+  // [BK][W]; v the same; the bias [STAGES][BK] f32; a flag a stage (the
+  // tile holds no padding key and no key past s); the barriers
+  static constexpr uint32_t OFF_K = QBUF * Q_BYTES;
+  static constexpr uint32_t OFF_V = OFF_K + STAGES * KV_BYTES;
+  static constexpr uint32_t OFF_BIAS = OFF_V + STAGES * KV_BYTES;
+  static constexpr uint32_t OFF_FLAG = OFF_BIAS + STAGES * BK * 4;
+  static constexpr uint32_t OFF_BAR = OFF_FLAG + 8 * ((STAGES + 1) / 2);
+  static constexpr size_t smem = 1024 + OFF_BAR + (2 * QBUF + 4 * STAGES) * 8;
+  // the descriptors' swizzle field: 1 = 128 B, 2 = 64 B, 3 = 32 B
+  static constexpr uint64_t SWIZZLE = SB == 128 ? 1 : SB == 64 ? 2 : 3;
+  static_assert(DHP % W == 0 && W % 16 == 0, "sub-tiles of whole k-steps");
+  static_assert(smem <= 232448, "a block's shared memory on the H100");
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// arrive, and expect `bytes` more of copies to land before the phase ends
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// one box of the 4-d map {column, head slot, row, batch row} into shared
+// memory, completing its bytes on the barrier
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int col,
+                                         int slot, int row, int bi) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(slot), "r"(row), "r"(bi), "r"(bar)
+      : "memory");
+}
+
+// descriptor of a swizzled operand at shared address `addr`: 8-row groups
+// `sbo` bytes apart; the leading offset is not read at these shapes (a
+// K-major step stays inside its swizzle span, an MN-major operand is one
+// span wide)
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t sbo, uint64_t swizzle) {
+  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) | (uint64_t(sbo >> 4) << 32) |
+         (swizzle << 62);
+}
+
+// scores of a key tile into `sc`: m64nBKk16 products over dh, q (the
+// warpgroup's 64 rows at `q_addr`) and k (at `kb`) both K-major; a k-step
+// is sub-tile ks * 16 / W, 32 bytes a step inside its rows. Issued and
+// committed, not waited for.
+template <typename T, int DHP>
+__device__ __forceinline__ void issue_scores(float (&sc)[Wg<DHP>::BK / 2], uint32_t q_addr,
+                                             uint32_t kb) {
+  using C = Wg<DHP>;
+#pragma unroll
+  for (int ks = 0; ks < DHP / 16; ++ks) {
+    const uint32_t sub = ks * 16 / C::W, step = (ks * 16 % C::W) * 2;
+    wgmma::ss<T, C::BK>(sc, wg_desc(q_addr + sub * kBQ * C::SB + step, 8 * C::SB, C::SWIZZLE),
+                        wg_desc(kb + sub * C::BK * C::SB + step, 8 * C::SB, C::SWIZZLE), ks > 0);
+  }
+  wgmma::commit();
+}
+
+// The online softmax of one tile, in place: scores to probabilities
+// exp2(score * scale + bias - running max), one exp2 each, for rows g
+// (m0, l0) and g + 8 (m1, l1); accumulator tile i covers keys 8i + 2t4,
+// + 1. The sums add the probabilities unrounded, rescaled to the new max;
+// c0, c1 is the rescale that ctx still owes. A tile whose bias is all 0
+// (`plain`: no padding key, no key past s) skips the bias: its max runs
+// over the raw scores (scale > 0) and the scale folds into the exp2's
+// argument, one FFMA, as in FlashAttention; the arithmetic is the same.
+template <int DHP>
+__device__ __forceinline__ void softmax_tile(float (&sc)[Wg<DHP>::BK / 2], const float* bias,
+                                             bool plain, float scale_log2, int t4, float& m0,
+                                             float& m1, float& l0, float& l1, float& c0,
+                                             float& c1) {
+  constexpr int BK = Wg<DHP>::BK;
+  float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
+  if (plain) {
+#pragma unroll
+    for (int i = 0; i < BK / 8; ++i) {
+      mx0 = fmaxf(mx0, fmaxf(sc[4 * i], sc[4 * i + 1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[4 * i + 2], sc[4 * i + 3]));
+    }
+    mx0 *= scale_log2;
+    mx1 *= scale_log2;
+  } else {
+#pragma unroll
+    for (int i = 0; i < BK / 8; ++i) {
+      const float2 b = *reinterpret_cast<const float2*>(bias + 8 * i + 2 * t4);
+      sc[4 * i] = fmaf(sc[4 * i], scale_log2, b.x);
+      sc[4 * i + 1] = fmaf(sc[4 * i + 1], scale_log2, b.y);
+      sc[4 * i + 2] = fmaf(sc[4 * i + 2], scale_log2, b.x);
+      sc[4 * i + 3] = fmaf(sc[4 * i + 3], scale_log2, b.y);
+      mx0 = fmaxf(mx0, fmaxf(sc[4 * i], sc[4 * i + 1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[4 * i + 2], sc[4 * i + 3]));
+    }
+  }
+#pragma unroll
+  for (int x = 1; x <= 2; x <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, x));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, x));
+  }
+  // finite from the first tile on (key 0 < s; exp2(-inf) = 0 then); a
+  // first tile of padding only (-1e30) is wiped by exp2(-1e30 - max) = 0
+  // once a valid key raises the max
+  mx0 = fmaxf(m0, mx0);
+  mx1 = fmaxf(m1, mx1);
+  c0 = exp2_approx(m0 - mx0);
+  c1 = exp2_approx(m1 - mx1);
+  m0 = mx0;
+  m1 = mx1;
+  // p = exp2(x - max) with x = score * scale (plain) or the biased score
+  const float sc0 = plain ? scale_log2 : 1.0f;
+  float r0 = 0.0f, r1 = 0.0f;
+#pragma unroll
+  for (int i = 0; i < BK / 8; ++i) {
+    sc[4 * i] = exp2_approx(fmaf(sc[4 * i], sc0, -m0));
+    sc[4 * i + 1] = exp2_approx(fmaf(sc[4 * i + 1], sc0, -m0));
+    sc[4 * i + 2] = exp2_approx(fmaf(sc[4 * i + 2], sc0, -m1));
+    sc[4 * i + 3] = exp2_approx(fmaf(sc[4 * i + 3], sc0, -m1));
+    r0 += sc[4 * i] + sc[4 * i + 1];
+    r1 += sc[4 * i + 2] + sc[4 * i + 3];
+  }
+  l0 = l0 * c0 + r0;
+  l1 = l1 * c1 + r1;
+}
+
+// the probabilities rounded to T as p.v's A fragments: key step kk is
+// accumulator tiles 2kk (a0, a1) and 2kk + 1 (a2, a3)
+template <typename T, int DHP>
+__device__ __forceinline__ void pack_probs(uint32_t (&pa)[Wg<DHP>::BK / 16][4],
+                                           const float (&sc)[Wg<DHP>::BK / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < Wg<DHP>::BK / 16; ++kk) {
+    pa[kk][0] = pack2<T>(sc[8 * kk], sc[8 * kk + 1]);
+    pa[kk][1] = pack2<T>(sc[8 * kk + 2], sc[8 * kk + 3]);
+    pa[kk][2] = pack2<T>(sc[8 * kk + 4], sc[8 * kk + 5]);
+    pa[kk][3] = pack2<T>(sc[8 * kk + 6], sc[8 * kk + 7]);
+  }
+}
+
+// ctx *= the rescale owed to the running max (c0 for rows g, c1 for rows
+// g + 8), before the products that read ctx and the probabilities `pa`
+// are issued: nothing may touch their registers between the issue and the
+// wait, or the compiler serializes the wgmma pipeline
+template <int DHP>
+__device__ __forceinline__ void rescale_ctx(float (&o)[Wg<DHP>::NSUB][Wg<DHP>::W / 2],
+                                            uint32_t (&pa)[Wg<DHP>::BK / 16][4], float c0,
+                                            float c1) {
+  using C = Wg<DHP>;
+#pragma unroll
+  for (int sub = 0; sub < C::NSUB; ++sub) {
+#pragma unroll
+    for (int i = 0; i < C::W / 8; ++i) {
+      o[sub][4 * i] *= c0;
+      o[sub][4 * i + 1] *= c0;
+      o[sub][4 * i + 2] *= c1;
+      o[sub][4 * i + 3] *= c1;
+    }
+    wgmma::fence_regs(o[sub]);
+  }
+#pragma unroll
+  for (int kk = 0; kk < C::BK / 16; ++kk) wgmma::fence_regs(pa[kk]);
+}
+
+// ctx += p.v of the probabilities `pa` against the v tile at shared
+// address `vb`: issued and committed, not waited for
+template <typename T, int DHP>
+__device__ __forceinline__ void issue_pv(float (&o)[Wg<DHP>::NSUB][Wg<DHP>::W / 2],
+                                         const uint32_t (&pa)[Wg<DHP>::BK / 16][4], uint32_t vb) {
+  using C = Wg<DHP>;
+#pragma unroll
+  for (int kk = 0; kk < C::BK / 16; ++kk) {
+#pragma unroll
+    for (int sub = 0; sub < C::NSUB; ++sub) {
+      // m64nWk16 a sub-tile: v MN-major (head_dim contiguous), 16 keys a step
+      wgmma::rs<T, C::W>(o[sub], pa[kk],
+                         wg_desc(vb + sub * C::BK * C::SB + kk * 16 * C::SB, 8 * C::SB, C::SWIZZLE));
+    }
+  }
+  wgmma::commit();
+}
+
+template <typename T, int DHP>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    wgmma_attention_kernel(const __grid_constant__ CUtensorMap q_map,
+                           const __grid_constant__ CUtensorMap kv_map,
+                           const int32_t* __restrict__ mask, T* __restrict__ out, int s, int d,
+                           int n_heads, int dh, int n_qt, int n_items, float scale_log2) {
+  using C = Wg<DHP>;
+  constexpr int BK = C::BK;
+  constexpr int W = C::W;
+  constexpr int SB = C::SB;
+  constexpr int NSUB = C::NSUB;
+  constexpr int STAGES = C::STAGES;
+  constexpr int QBUF = C::QBUF;
+
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;  // the swizzle's 1024-byte period
+  unsigned char* sm = smem_raw + (base - raw);
+  const uint32_t bars = base + C::OFF_BAR;
+  auto q_full = [&](int i) { return bars + 8 * i; };
+  auto q_empty = [&](int i) { return bars + 8 * (QBUF + i); };
+  auto k_full = [&](int i) { return bars + 8 * (2 * QBUF + i); };
+  auto k_empty = [&](int i) { return bars + 8 * (2 * QBUF + STAGES + i); };
+  auto v_full = [&](int i) { return bars + 8 * (2 * QBUF + 2 * STAGES + i); };
+  auto v_empty = [&](int i) { return bars + 8 * (2 * QBUF + 3 * STAGES + i); };
+
+  const int tid = threadIdx.x;
+  // broadcast from lane 0, so the compiler sees the roles as uniform
+  // across each warp and does not serialize the wgmma pipeline in them
+  const int warp = __shfl_sync(0xffffffffu, tid / 32, 0);
+  const int lane = tid % 32;
+  if (tid == 0) {
+    for (int i = 0; i < QBUF; ++i) {
+      mbar_init(q_full(i), 1);
+      mbar_init(q_empty(i), 4 * kConsumers);
+    }
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(k_full(i), 32);  // the producer's lanes (each wrote bias)
+      mbar_init(k_empty(i), 4 * kConsumers);
+      mbar_init(v_full(i), 1);
+      mbar_init(v_empty(i), 4 * kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= kProducerWarp) {
+    // ---- producer: q of each work item, then its key tiles through the
+    // k and v rings; lane 0 of one warp issues the copies, its lanes build
+    // the bias
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (warp != kProducerWarp) return;
+    int kt = 0;
+    int it = 0;
+    for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++it) {
+      const int qt = item % n_qt;
+      const int bh = item / n_qt;
+      const int bi = bh / n_heads;
+      const int hi = bh - bi * n_heads;
+      const int qb = it % QBUF;
+      mbar_wait(q_empty(qb), ((it / QBUF) & 1) ^ 1);
+      if (lane == 0) {
+        mbar_arrive_expect_tx(q_full(qb), C::Q_BYTES);
+#pragma unroll
+        for (int sub = 0; sub < NSUB; ++sub) {
+          tma_load(base + qb * C::Q_BYTES + sub * kBQ * SB, &q_map, q_full(qb), sub * W, hi,
+                   qt * kBQ, bi);
+        }
+      }
+      const int32_t* mrow = mask + size_t(bi) * s;
+      const int n_kt = (s + BK - 1) / BK;
+      for (int j = 0; j < n_kt; ++j, ++kt) {
+        const int st = kt % STAGES;
+        const uint32_t empty_par = ((kt / STAGES) & 1) ^ 1;
+        const int k0 = j * BK;
+        // key bias in f32, once a block: 0, -1e30 (padding) or -inf (past
+        // s); the mask is read before the wait, so its latency hides there
+        float bv[BK / 32];
+#pragma unroll
+        for (int x = 0; x < BK / 32; ++x) {
+          const int key = k0 + lane + 32 * x;
+          bv[x] = key < s ? (mrow[key] == 0 ? -1e30f : 0.0f) : -CUDART_INF_F;
+        }
+        bool plain = true;
+#pragma unroll
+        for (int x = 0; x < BK / 32; ++x) plain = plain && bv[x] == 0.0f;
+        plain = __all_sync(0xffffffffu, plain);
+        mbar_wait(k_empty(st), empty_par);
+        float* bt = reinterpret_cast<float*>(sm + C::OFF_BIAS) + st * BK;
+#pragma unroll
+        for (int x = 0; x < BK / 32; ++x) bt[lane + 32 * x] = bv[x];
+        if (lane == 0) {
+          reinterpret_cast<int*>(sm + C::OFF_FLAG)[st] = plain;
+          mbar_arrive_expect_tx(k_full(st), C::KV_BYTES);
+#pragma unroll
+          for (int sub = 0; sub < NSUB; ++sub) {
+            tma_load(base + C::OFF_K + st * C::KV_BYTES + sub * BK * SB, &kv_map, k_full(st),
+                     sub * W, n_heads + hi, k0, bi);
+          }
+        } else {
+          mbar_arrive(k_full(st));
+        }
+        mbar_wait(v_empty(st), empty_par);
+        if (lane == 0) {
+          mbar_arrive_expect_tx(v_full(st), C::KV_BYTES);
+#pragma unroll
+          for (int sub = 0; sub < NSUB; ++sub) {
+            tma_load(base + C::OFF_V + st * C::KV_BYTES + sub * BK * SB, &kv_map, v_full(st),
+                     sub * W, 2 * n_heads + hi, k0, bi);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup c takes query rows 64c .. 64c + 63 of each
+  // work item; its warp wq rows 16wq .. + 15 (the wgmma accumulator
+  // layout). Rows past s are zero and compute to finite values that are
+  // never stored. The pipeline runs on across the block's work items: each
+  // step issues the next key tile's scores (of this item or the next)
+  // together with this tile's p.v, and runs the next tile's softmax while
+  // the tensor cores finish that product. The code from each issue to its
+  // wait is straight-line, so the compiler keeps the wgmma pipeline
+  // asynchronous.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int c = warp / 4;
+  const int wq = warp % 4;
+  const int g = lane >> 2;  // row of the fragment (and row + 8)
+  const int t4 = lane & 3;  // column pair of the fragment
+  const float* bias = reinterpret_cast<const float*>(sm + C::OFF_BIAS);
+  // a stage's flag, broadcast so the compiler sees the branch as uniform
+  auto plain = [&](int t) {
+    return __shfl_sync(0xffffffffu, reinterpret_cast<const int*>(sm + C::OFF_FLAG)[t % STAGES], 0) != 0;
+  };
+  auto q_addr = [&](int it) { return base + (it % QBUF) * C::Q_BYTES + c * 64 * SB; };
+  auto k_addr = [&](int t) { return base + C::OFF_K + (t % STAGES) * C::KV_BYTES; };
+  auto v_addr = [&](int t) { return base + C::OFF_V + (t % STAGES) * C::KV_BYTES; };
+  auto release = [&](uint32_t bar) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+  };
+  // ctx / sum in T, straight from the registers into out, rows g and
+  // g + 8 of the warp: lanes t4 and t4 ^ 1 swap one column pair, so that
+  // each stores 8 bytes and a store fills whole 32-byte sectors; rows past
+  // s and columns past dh are never written
+  auto store_ctx = [&](const float (&acc)[NSUB][W / 2], float s0, float s1, int bi, int hi, int q0) {
+#pragma unroll
+    for (int x = 1; x <= 2; x <<= 1) {
+      s0 += __shfl_xor_sync(0xffffffffu, s0, x);
+      s1 += __shfl_xor_sync(0xffffffffu, s1, x);
+    }
+    const float inv[2] = {1.0f / s0, 1.0f / s1};
+    const int odd = t4 & 1;
+    const int row = q0 + 64 * c + 16 * wq + g;
+    T* out0 = out + (size_t(bi) * s + row) * d + size_t(hi) * dh + 2 * (t4 & ~1);
+#pragma unroll
+    for (int sub = 0; sub < NSUB; ++sub) {
+#pragma unroll
+      for (int i = 0; i < W / 8; i += 2) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {  // rows g, g + 8
+          const uint32_t a = pack2<T>(acc[sub][4 * i + 2 * h] * inv[h], acc[sub][4 * i + 2 * h + 1] * inv[h]);
+          const uint32_t b =
+              pack2<T>(acc[sub][4 * i + 4 + 2 * h] * inv[h], acc[sub][4 * i + 5 + 2 * h] * inv[h]);
+          // an even lane keeps tile i and takes its odd neighbour's pair of
+          // it; an odd lane keeps tile i + 1 and takes the even one's
+          const uint32_t got = __shfl_xor_sync(0xffffffffu, odd ? a : b, 1);
+          const int col = sub * W + 8 * (i + odd);
+          if (col < dh && row + 8 * h < s) {
+            *reinterpret_cast<uint2*>(out0 + size_t(8 * h) * d + col) =
+                odd ? make_uint2(got, b) : make_uint2(a, got);
+          }
+        }
+      }
+    }
+  };
+
+  int item = blockIdx.x;
+  if (item >= n_items) return;
+  const int n_kt = (s + BK - 1) / BK;
+  int it = 0;  // the block's work items so far
+  int j = 0;   // key tile of the current item
+  int t = 0;   // key tiles so far (the rings' position)
+  int bh = item / n_qt;
+  int bi = bh / n_heads, hi = bh - bi * n_heads, q0 = (item % n_qt) * kBQ;
+
+  // rows g and g + 8, log2 domain: running max, this thread's share of
+  // the sum, the rescale that ctx still owes to the last max
+  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F;
+  float l0 = 0.0f, l1 = 0.0f;
+  float c0 = 1.0f, c1 = 1.0f;
+  float o[NSUB][W / 2];
+#pragma unroll
+  for (int sub = 0; sub < NSUB; ++sub) {
+#pragma unroll
+    for (int i = 0; i < W / 2; ++i) o[sub][i] = 0.0f;
+  }
+  float sc[BK / 2];         // scores of a tile, then its probabilities
+  uint32_t pa[BK / 16][4];  // probabilities of tile t, in T
+
+  // the block's first tile: its scores alone
+  mbar_wait(q_full(0), 0);
+  mbar_wait(k_full(0), 0);
+  wgmma::fence_regs(sc);
+  wgmma::fence();
+  issue_scores<T, DHP>(sc, q_addr(0), k_addr(0));
+  wgmma::wait<0>();
+  wgmma::fence_regs(sc);
+  softmax_tile<DHP>(sc, bias, plain(0), scale_log2, t4, m0, m1, l0, l1, c0, c1);
+  release(k_empty(0));  // k and its bias are read
+  if (n_kt == 1) release(q_empty(0));  // the item's last q.k^T is done
+  pack_probs<T, DHP>(pa, sc);
+
+  for (;;) {
+    // tile t + 1: the next of this item, or the first of the next item
+    const bool next_item = j + 1 == n_kt;
+    const int item_n = next_item ? item + int(gridDim.x) : item;
+    if (item_n >= n_items) break;
+    const int it_n = it + next_item;
+    const int j_n = next_item ? 0 : j + 1;
+    if (next_item) mbar_wait(q_full(it_n % QBUF), (it_n / QBUF) & 1);
+    mbar_wait(k_full((t + 1) % STAGES), ((t + 1) / STAGES) & 1);
+    mbar_wait(v_full(t % STAGES), (t / STAGES) & 1);
+    rescale_ctx<DHP>(o, pa, c0, c1);
+    wgmma::fence_regs(sc);
+    wgmma::fence();
+    issue_scores<T, DHP>(sc, q_addr(it_n), k_addr(t + 1));
+    issue_pv<T, DHP>(o, pa, v_addr(t));
+    wgmma::wait<1>();
+    wgmma::fence_regs(sc);
+    // a new item starts its own max and sum; this item's sum waits for
+    // its last product
+    const float s0 = l0, s1 = l1;
+    if (next_item) {
+      m0 = m1 = -CUDART_INF_F;
+      l0 = l1 = 0.0f;
+    }
+    softmax_tile<DHP>(sc, bias + ((t + 1) % STAGES) * BK, plain(t + 1), scale_log2, t4, m0, m1, l0,
+                      l1, c0, c1);
+    release(k_empty((t + 1) % STAGES));
+    if (j_n + 1 == n_kt) release(q_empty(it_n % QBUF));
+    wgmma::wait<0>();
+#pragma unroll
+    for (int sub = 0; sub < NSUB; ++sub) wgmma::fence_regs(o[sub]);
+    release(v_empty(t % STAGES));
+    if (next_item) {
+      store_ctx(o, s0, s1, bi, hi, q0);
+      // the next item's first product rescales ctx by exp2(-inf) = 0
+      bh = item_n / n_qt;
+      bi = bh / n_heads;
+      hi = bh - bi * n_heads;
+      q0 = (item_n % n_qt) * kBQ;
+    }
+    pack_probs<T, DHP>(pa, sc);
+    item = item_n;
+    it = it_n;
+    j = j_n;
+    ++t;
+  }
+
+  // the block's last tile's p.v
+  mbar_wait(v_full(t % STAGES), (t / STAGES) & 1);
+  rescale_ctx<DHP>(o, pa, c0, c1);
+  wgmma::fence();
+  issue_pv<T, DHP>(o, pa, v_addr(t));
+  wgmma::wait<0>();
+#pragma unroll
+  for (int sub = 0; sub < NSUB; ++sub) wgmma::fence_regs(o[sub]);
+  release(v_empty(t % STAGES));
+  store_ctx(o, l0, l1, bi, hi, q0);
+}
+
+PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+    }
+  }
+  return fn;
+}
+
+template <typename T, int DHP>
+int launch_wgmma(const void* qkv, const void* mask, void* out, int b, int s, int d, int n_heads,
+                 float scale, cudaStream_t stream) {
+  using C = Wg<DHP>;
+  const int dh = d / n_heads;
+  const int n_qt = (s + kBQ - 1) / kBQ;
+  const long long items = static_cast<long long>(b) * n_heads * n_qt;
+  if (items >= (1ll << 31)) return int(cudaErrorInvalidConfiguration);
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr) return kNoEncoder;
+  // qkv as {column of the head, head slot (q heads, then k, then v), row,
+  // batch row}: a box reads one head's columns only, and columns past dh
+  // and rows past s arrive as zeros
+  const cuuint64_t dims[4] = {cuuint64_t(dh), cuuint64_t(3 * n_heads), cuuint64_t(s), cuuint64_t(b)};
+  const cuuint64_t strides[3] = {cuuint64_t(dh) * sizeof(T), cuuint64_t(3) * d * sizeof(T),
+                                 cuuint64_t(s) * 3 * d * sizeof(T)};
+  const cuuint32_t q_box[4] = {C::W, 1, kBQ, 1};
+  const cuuint32_t kv_box[4] = {C::W, 1, C::BK, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapDataType type = std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                                                  : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const CUtensorMapSwizzle swizzle = C::SB == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : C::SB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                   : CU_TENSOR_MAP_SWIZZLE_32B;
+  const cuuint32_t* boxes[2] = {q_box, kv_box};
+  CUtensorMap maps[2];  // q, then k and v
+  for (int i = 0; i < 2; ++i) {
+    const CUresult r = encode(&maps[i], type, 4, const_cast<void*>(qkv), dims, strides, boxes[i],
+                              unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (r != CUDA_SUCCESS) return kTensorMapError + int(r);
+  }
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) {
+    e = cudaFuncSetAttribute(wgmma_attention_kernel<T, DHP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, int(C::smem));
+  }
+  if (e != cudaSuccess) return int(e);
+  // persistent: one block an SM walks the work items (row, head, 128
+  // queries) in steps of the grid
+  const int grid = int(items < sms ? items : sms);
+  wgmma_attention_kernel<T, DHP><<<grid, kWgThreads, C::smem, stream>>>(
+      maps[0], maps[1], static_cast<const int32_t*>(mask), static_cast<T*>(out), s, d, n_heads, dh,
+      n_qt, int(items), scale * kLog2e);
   return int(cudaGetLastError());
 }
 
 // the least instantiated width >= dh
 template <typename T>
-int launch_tiled_dh(const void* qkv, const void* mask, void* out, int b, int s, int d,
+int launch_wgmma_dh(const void* qkv, const void* mask, void* out, int b, int s, int d,
                     int n_heads, float scale, cudaStream_t stream) {
   const int dh = d / n_heads;
-  if (dh <= 16) return launch_tiled<T, 16>(qkv, mask, out, b, s, d, n_heads, scale, stream);
-  if (dh <= 32) return launch_tiled<T, 32>(qkv, mask, out, b, s, d, n_heads, scale, stream);
-  if (dh <= 64) return launch_tiled<T, 64>(qkv, mask, out, b, s, d, n_heads, scale, stream);
-  if (dh <= 96) return launch_tiled<T, 96>(qkv, mask, out, b, s, d, n_heads, scale, stream);
-  if (dh <= 128) return launch_tiled<T, 128>(qkv, mask, out, b, s, d, n_heads, scale, stream);
-  return launch_tiled<T, 256>(qkv, mask, out, b, s, d, n_heads, scale, stream);
+  if (dh <= 16) return launch_wgmma<T, 16>(qkv, mask, out, b, s, d, n_heads, scale, stream);
+  if (dh <= 32) return launch_wgmma<T, 32>(qkv, mask, out, b, s, d, n_heads, scale, stream);
+  if (dh <= 64) return launch_wgmma<T, 64>(qkv, mask, out, b, s, d, n_heads, scale, stream);
+  if (dh <= 96) return launch_wgmma<T, 96>(qkv, mask, out, b, s, d, n_heads, scale, stream);
+  if (dh <= 128) return launch_wgmma<T, 128>(qkv, mask, out, b, s, d, n_heads, scale, stream);
+  return launch_wgmma<T, 256>(qkv, mask, out, b, s, d, n_heads, scale, stream);
 }
 
 }  // namespace
@@ -786,9 +1328,12 @@ extern "C" {
 
 // qkv [b, s, 3d] and mask [b, s] int32, both contiguous, qkv 16-byte
 // aligned; out [b, s, d] in qkv's dtype (0 bf16, 1 f16, 2 f32). s >= 1,
-// d / n_heads a multiple of 8 up to 256, and b * n_heads * ceil(s / 64) <
-// 2^31 (the Python wrapper checks all of it). Returns the
-// cudaGetLastError() code of the launch: 0 on success.
+// d / n_heads a multiple of 8 up to 256, and b * n_heads * ceil(s / 128)
+// < 2^31 (the Python wrapper checks all of it). bf16 at head_dim 32 or 64
+// and s <= 128 takes the short kernel, other bf16 and f16 the wgmma
+// kernel, f32 the 3xTF32 kernel. Returns the cudaGetLastError() code of
+// the launch (0 on success), or kNoEncoder / kTensorMapError + CUresult
+// where the CUDA driver gives no tensor map.
 int pw_fused_qkv_attention(const void* qkv, const void* mask, void* out, int dtype, int b,
                            int s, int d, int n_heads, float scale, void* stream) {
   if (b < 1 || s < 1 || n_heads < 1 || d % n_heads != 0) return int(cudaErrorInvalidValue);
@@ -802,9 +1347,9 @@ int pw_fused_qkv_attention(const void* qkv, const void* mask, void* out, int dty
     if (dh == 64) return launch_dh<64>(qkv, mask, out, b, s, d, n_heads, scale, st);
     return launch_dh<32>(qkv, mask, out, b, s, d, n_heads, scale, st);
   }
-  if (dtype == 0) return launch_tiled_dh<__nv_bfloat16>(qkv, mask, out, b, s, d, n_heads, scale, st);
-  if (dtype == 1) return launch_tiled_dh<__half>(qkv, mask, out, b, s, d, n_heads, scale, st);
-  if (dtype == 2) return launch_tiled_dh<float>(qkv, mask, out, b, s, d, n_heads, scale, st);
+  if (dtype == 0) return launch_wgmma_dh<__nv_bfloat16>(qkv, mask, out, b, s, d, n_heads, scale, st);
+  if (dtype == 1) return launch_wgmma_dh<__half>(qkv, mask, out, b, s, d, n_heads, scale, st);
+  if (dtype == 2) return launch_f32_dh(qkv, mask, out, b, s, d, n_heads, scale, st);
   return int(cudaErrorInvalidValue);
 }
 

@@ -11,14 +11,20 @@ TPU kernel ``pathway_tpu/ops/attention.py:_attn_kernel`` over that
 kernel's whole contract (qkv in bf16, f16 or f32, its probabilities
 rounded to qkv's dtype; any s; every head width that is a multiple of 8
 up to 256) and keeps its device-memory contract: qkv is read once, ctx
-written once, and no [b, h, s, s] tensor reaches device memory. Two
-kernels sit behind the one entry point: a one-pass kernel that holds a
-whole row of keys (bf16, head_dim 32 or 64, s <= 128) and a tiled
-two-pass kernel for the rest, which streams the keys in tiles and
-rounds the normalised probabilities where the TPU kernel rounds them.
-The kernel is bound by bytes at the encoders' shapes (PERF.md gives the
-bound per shape); the source's header says what its design does about
-that. On a CPU tensor the wrapper runs ``reference_attention``, the
+written once, and no [b, h, s, s] tensor reaches device memory. Three
+kernels sit behind the one entry point: a short kernel that holds a
+whole row of keys (bf16, head_dim 32 or 64, s <= 128), and for the rest
+two tiled kernels that take 128 queries a block and stream the head's
+keys once in tiles with an online softmax (one exp2 and one q.k^T a
+score): ``wgmma`` products fed by TMA copies for bf16 and f16, and
+3xTF32 ``mma.sync`` products for f32. The tiled kernels round the
+probabilities to qkv's dtype relative to the running max, before the
+division by the row sum, where the TPU kernel rounds the normalised
+probabilities; the two agree to the order of one flipped rounding
+(``tests/test_torch_attention_tiling.py``). The kernel is bound by bytes
+at the encoders' shapes, and by bytes and exponentials together at s 512
+(PERF.md gives the bound per shape); the source's header says what its
+design does about that. On a CPU tensor the wrapper runs ``reference_attention``, the
 plain version the tests and ``chip_smoke.py`` hold the kernel against.
 
 ``ring_attention`` is the sequence-parallel attention of the JAX
@@ -40,7 +46,7 @@ KERNEL = "fused_qkv_attention"
 MAX_HEAD_DIM = 256  # csrc/attention.cu's widest instantiation
 # qkv dtypes the kernel takes, by the code its C entry point reads
 _DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
-_BLOCK_QUERIES = 64  # queries a block of the tiled kernel
+_BLOCK_QUERIES = 128  # queries a work item (a block) of the tiled kernels
 # what an encoder outside the kernel's envelope sets instead
 _PLAIN_ROUTE = "; set fused_attention=False in the TransformerConfig to run the plain attention"
 
@@ -103,6 +109,7 @@ def fused_qkv_attention(
     if b < 1 or s < 1:
         raise ValueError(f"the attention kernel takes b >= 1 and s >= 1, got b={b}, s={s}")
     if b * n_heads * -(-s // _BLOCK_QUERIES) >= 2**31:
+        # the tiled kernels' work items (row, head, 128 queries) are counted in 32 bits
         raise ValueError(f"batch {b} x {n_heads} heads x s {s} exceeds the kernel's grid")
     if tuple(token_mask.shape) != (b, s) or token_mask.device != qkv.device:
         raise ValueError(
@@ -120,11 +127,23 @@ def fused_qkv_attention(
         )
     if rc != 0:
         raise RuntimeError(
-            f"attention kernel launch failed with CUDA error {rc} "
+            f"attention kernel launch failed with {_launch_error(rc)} "
             f"(b={b}, s={s}, d={d}, n_heads={n_heads}, {qkv.dtype})"
         )
     _build.count_launch(KERNEL, s)
     return out
+
+
+# the C entry point's codes past CUDA's own (csrc/attention.cu)
+_NO_ENCODER, _TENSOR_MAP_ERROR = 999, 1000
+
+
+def _launch_error(rc: int) -> str:
+    if rc == _NO_ENCODER:
+        return "no tensor-map encoder in the CUDA driver"
+    if rc >= _TENSOR_MAP_ERROR:
+        return f"a tensor map the driver refused (CUresult {rc - _TENSOR_MAP_ERROR})"
+    return f"CUDA error {rc}"
 
 
 def reference_attention(

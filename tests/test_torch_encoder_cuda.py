@@ -57,7 +57,7 @@ def _card_and_cpu(cfg, cuda_device):
     )
 
 
-def test_f32_encoder_raises_on_the_kernel_and_encodes_unfused(cuda_device):
+def test_f32_encoder_launches_the_kernel_and_matches_the_cpu(cuda_device):
     """An f32 encoder: the kernel serves it (it raised before C6) and
     agrees with the CPU; the unfused route launches nothing and agrees
     too."""
@@ -83,7 +83,7 @@ def test_bf16_unfused_encoder_matches_the_cpu(cuda_device):
     )
 
 
-def test_long_sequences_need_the_unfused_route(cuda_device):
+def test_long_sequences_launch_the_tiled_kernel_and_match_the_cpu(cuda_device):
     """s 256 and 512, past the short kernel's 128 (where the default
     raised before C6): the default config launches the tiled kernel at
     that s and agrees with the CPU, and so does the unfused config."""

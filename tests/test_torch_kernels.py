@@ -26,13 +26,17 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _qkv_case(seed: int, b: int, s: int, d: int):
+def _qkv_case(seed: int, b: int, s: int, d: int, suffix: bool = False):
+    """Unit-normal qkv and random lengths: each row's first `len` keys
+    valid, or with `suffix` its last `len` (rows that start with padding,
+    a whole first key tile of it where len < s - 128)."""
     rng = np.random.default_rng(seed)
     qkv = rng.normal(size=(b, s, 3 * d)).astype(np.float32)
     lens = rng.integers(1, s + 1, b)
     lens[0] = 0  # one row whose keys are all padding (bucket padding makes these)
-    mask = (np.arange(s)[None, :] < lens[:, None]).astype(np.int32)
-    return qkv, mask
+    pos = np.arange(s)[None, :]
+    mask = (pos >= s - lens[:, None]) if suffix else (pos < lens[:, None])
+    return qkv, mask.astype(np.int32)
 
 
 def test_wrapper_on_cpu_runs_plain_version_and_counts_no_launch():
@@ -61,9 +65,12 @@ def test_build_key_covers_source_and_flags():
 
 # (b, s, d, h): the two main-path shapes cut in batch, s 16 and 32, s 128 at
 # dh 64, ragged s at both head dims, and odd batch and head counts; then the
-# tiled kernel: s past 128 (one key past two tiles, the s 256 and s 512
+# tiled kernels: s past 128 (one key past two tiles, the s 256 and s 512
 # buckets, a long ragged s), and head_dim 8 (zero-padded into 16), 96, 128
-# and 256
+# and 256; then the edges of their 128-query work items and 128-key tiles
+# at dh 64 (s 127, 128, 255, 257; bf16 takes the short kernel at s <= 128,
+# f16 and f32 the tiled ones), a ragged s at dh 256 (64-key tiles) and at
+# dh 96 (three 32-column sub-tiles)
 CARD_SHAPES = [
     (64, 64, 384, 6), (32, 128, 256, 8), (8, 16, 64, 2),
     (5, 16, 192, 3), (7, 32, 128, 2), (16, 128, 384, 6),
@@ -71,6 +78,8 @@ CARD_SHAPES = [
     (3, 1, 64, 2), (4, 17, 96, 3),
     (8, 129, 512, 8), (4, 256, 512, 8), (4, 512, 512, 8), (2, 1000, 384, 6),
     (8, 100, 16, 2), (8, 100, 96, 1), (8, 200, 256, 2), (4, 300, 512, 2),
+    (4, 127, 512, 8), (4, 128, 512, 8), (4, 255, 512, 8), (4, 257, 512, 8),
+    (4, 77, 512, 2), (4, 131, 768, 8),
 ]
 # every dtype the kernel takes, and its bound against the plain version:
 # one bf16 ulp at |ctx| < 4 for the 16-bit types (a flipped rounding), the
@@ -78,9 +87,9 @@ CARD_SHAPES = [
 CARD_DTYPES = {"bf16": (torch.bfloat16, 2.0**-6), "f16": (torch.float16, 2.0**-6), "f32": (torch.float32, 1e-5)}
 
 
-def _check_on_card(cuda_device, b, s, d, h, seed, dtype):
+def _check_on_card(cuda_device, b, s, d, h, seed, dtype, suffix=False):
     torch_dtype, atol = CARD_DTYPES[dtype]
-    qkv, mask = _qkv_case(seed, b, s, d)
+    qkv, mask = _qkv_case(seed, b, s, d, suffix)
     q = torch.from_numpy(qkv).to(cuda_device, torch_dtype)
     m = torch.from_numpy(mask).to(cuda_device)
     _build.reset_launch_counts()
@@ -111,6 +120,17 @@ def test_kernel_matches_plain_on_card_in_f16_and_f32(cuda_device, b, s, d, h, dt
     """The same in f16 and f32: the kernel takes qkv's dtype and writes
     ctx in it, as the TPU kernel does."""
     _check_on_card(cuda_device, b, s, d, h, 7, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bf16", "f16", "f32"])
+@pytest.mark.parametrize("b,s,d,h", [(8, 100, 384, 6), (8, 300, 512, 8), (4, 512, 512, 8), (4, 200, 512, 2)])
+def test_kernel_matches_plain_on_card_with_suffix_masks(cuda_device, b, s, d, h, dtype):
+    """Masks that hold each row's last keys: rows start with padding, a
+    whole first key tile of it at s 300 and 512 (the tiled kernels'
+    running max starts at -1e30 there and must be wiped by the rescale
+    once a valid key arrives, not averaged in)."""
+    _check_on_card(cuda_device, b, s, d, h, 8, dtype, suffix=True)
 
 
 @pytest.mark.cuda
