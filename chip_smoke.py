@@ -6,8 +6,8 @@
 Builds the port's hand-written kernels from ``pathway_tpu_torch/csrc``,
 holds each against its plain PyTorch version on the card (the attention
 kernel timed at the main paths' shapes in bf16 and f32, checked at every
-tiling, at ragged lengths, at sequences up to 2048, at every head width and
-in f16), then drives the
+tiling, at ragged lengths, at sequences up to 2048, at head widths 1 to
+1024 and in f16), then drives the
 live-RAG embed -> index -> retrieve path at the flagship encoder's full
 width (vocab 32768, d_model 384, 6 heads, 6 layers, d_ff 1536, seq 64,
 embed_dim 384; random weights from a seed): 1,048,576 docs encoded in
@@ -17,22 +17,30 @@ coalesced), self-retrieval over the 1M-doc slab, exact and int8 search
 timed. The approximate tier follows: bench.py's 1M x 64 ANN corpus built
 into an IVF-PQ index and searched at bench.py's operating point (against
 exact search and the numpy oracle, split by stage against its bound), then
-``IvfPqIndex`` over 34,897 flagship-width rows (retrain, search,
+``IvfPqIndex`` over 18,513 flagship-width rows (retrain, search,
 churn in waves, the reranked nprobe-1 wrapper), and the same index with
-its lists in RAM/disk tiers over 32,768 of those rows (the hot route on
+its lists in RAM/disk tiers over 16,384 of those rows (the hot route on
 the card, cold lists read from disk, churn, the tier contract). Between
 the RAG phases and the approximate tier, ``VectorStoreServer`` serves the
 texts over REST with its default embedder, held to a direct slab search,
 and ``EncoderReranker`` is held to the CPU; before them, ``long_embed``
-streams 16,384 documents of the repo's texts through ``DocumentStore``
+streams 8,192 documents of the repo's texts through ``DocumentStore``
 with the default ``TokenCountSplitter()`` (chunks of up to 500 tokens)
 and the JAX package's default encoder width (``TransformerConfig()``: d
 512, 8 heads, 6 layers, max_len 512) into the s 256 and s 512 buckets,
 held to a direct slab, and that encoder at f32 is held to the plain
-route and the CPU; then ``python -m
-pathway_tpu_torch spawn -n 1`` and ``-n 2`` run an ingest pipeline over
-16,384 documents, each process embedding its share with the default
-embedder on the card, the two runs held to each other. After the tiers,
+route and the CPU; then ``gateway_overload`` drives a
+``rest_connector`` behind a ``ServingGateway``, in front of the default
+embedder and a slab of the texts on the card, with
+scripts/serving_loadgen.py's closed-loop rungs (100 and 1,000 clients, a
+20 ms straggler with and without the gateway), every answer held to a
+direct slab search; then ``python -m pathway_tpu_torch spawn -n 1`` and
+``-n 2`` run an ingest pipeline over 8,192 documents, each process
+embedding its share with the default embedder on the card, the two runs
+held to each other; ``elastic_rescale`` runs the same pipeline under the
+supervisor grown from 2 processes to 3 mid-run, held to both; and
+``bluegreen_swap`` swaps a persisted pipeline that embeds on the card for
+a green of the same plan while 50 clients query the gateway. After the tiers,
 ``pw.ml.index.KNNIndex`` answers 256 queries over the tiered rows in one
 run, held to a direct slab search. Then it generates with bench.py's
 Gemma-2B-shaped decoder at full width (vocab 256128, d_model 2048, 8
@@ -99,7 +107,10 @@ N_QUERIES, TOP_K = 16, 10
 # chunks fall into; then the JAX package's default encoder width
 # (TransformerConfig(): d 512, 8 heads) at the s 512 and s 256 buckets that
 # long_embed's 500-token chunks fill (b 1024 at s 512: the plain version's
-# f32 scores are 8.6 GB), the flagship at f32, and head_dim 128
+# f32 scores are 8.6 GB), the flagship at f32, and head_dim 128; then the
+# any-width kernel at two widths the JAX package's encoders take and the
+# other kernels do not: d 384 over 32 heads (dh 12) and d 1280 over 4
+# heads (dh 320)
 ATTENTION_SHAPES = [
     ("flagship", 16384, 64, 384, 6, "bf16"),
     ("embedder_default", 4096, 128, 256, 8, "bf16"),
@@ -110,6 +121,8 @@ ATTENTION_SHAPES = [
     ("long_s256", 2048, 256, 512, 8, "bf16"),
     ("flagship_f32", 16384, 64, 384, 6, "f32"),
     ("dh128", 4096, 128, 1024, 8, "bf16"),
+    ("odd_dh12", 4096, 128, 384, 32, "bf16"),
+    ("wide_dh320", 1024, 256, 1280, 4, "bf16"),
 ]
 # checked, not timed: the other tilings of the short kernel (s 16 and 32
 # with a batch that is not a multiple of 4, s 128 at dh 64 is its largest
@@ -122,7 +135,10 @@ ATTENTION_SHAPES = [
 # and dh 96 (three 32-column sub-tiles), f16 at s 512, and suffix masks
 # (an optional seventh field; see attention_case) whose rows start with
 # 64 or more padding keys, so that a first key tile of padding only must
-# be wiped by the rescale
+# be wiped by the rescale; then the any-width kernel: head_dim 1, 4, 12,
+# 20, 36, 100 (off the multiples of 8: heads at 2-byte offsets) and 264,
+# 320, 512, 1024 (past 256: several 64-column chunks), in bf16, f16 and
+# f32, s from 1 to 600, suffix masks, batches that fill no tile evenly
 ATTENTION_CHECK_SHAPES = [
     ("s16_dh64", 4097, 16, 384, 6, "bf16"),
     ("s32_dh64", 4097, 32, 384, 6, "bf16"),
@@ -152,6 +168,18 @@ ATTENTION_CHECK_SHAPES = [
     ("suffix_s300", 128, 300, 512, 8, "bf16", "suffix"),
     ("suffix_s512_f16", 64, 512, 512, 8, "f16", "suffix"),
     ("suffix_s200_f32", 64, 200, 512, 8, "f32", "suffix"),
+    ("dh1_s1", 97, 1, 2, 2, "bf16"),
+    ("dh4_s33_f16", 129, 33, 16, 4, "f16"),
+    ("dh12_s77", 300, 77, 384, 32, "bf16"),
+    ("dh12_s128_suffix", 101, 128, 36, 3, "bf16", "suffix"),
+    ("dh20_s130_f32", 50, 130, 40, 2, "f32"),
+    ("dh36_s257", 33, 257, 72, 2, "bf16"),
+    ("dh100_s600_f16_suffix", 9, 600, 200, 2, "f16", "suffix"),
+    ("dh264_s70_f32_suffix", 21, 70, 264, 1, "f32", "suffix"),
+    ("dh320_s256", 65, 256, 1280, 4, "bf16"),
+    ("dh512_s100", 17, 100, 1024, 2, "bf16"),
+    ("dh1024_s64_f32", 7, 64, 2048, 2, "f32"),
+    ("dh1024_s300_suffix", 5, 300, 1024, 1, "bf16", "suffix"),
 ]
 # every shape is checked on this many seeded inputs, the first one timed
 ATTENTION_SEEDS = 3
@@ -177,7 +205,9 @@ EMBEDDER_DEFAULT = dict(
 RAG_DOCS, RAG_QUESTIONS, RAG_WAVES, RAG_SEED, RAG_TOPK, RAG_NEW = 512, 128, 8, 4, 4, 32
 # a live document store at a deployment's size: documents drawn from the
 # texts phase's chunks, streamed in waves, then questions retrieved
-INGEST_DOCS, INGEST_WAVES, INGEST_QUESTIONS, INGEST_K = 65_536, 16, 64, 4
+# (131,072 documents before long_embed joined the script, 65,536 before
+# the gateway, swap and rescale phases did: cut for their time)
+INGEST_DOCS, INGEST_WAVES, INGEST_QUESTIONS, INGEST_K = 32_768, 16, 64, 4
 # long_embed: the JAX package's own encoder defaults (TransformerConfig(),
 # pathway_tpu/models/transformer.py:40-58, through embedder_config; embed_dim
 # 512) behind the default TokenCountSplitter() (50 to 500 tokens): what a RAG
@@ -188,7 +218,9 @@ INGEST_DOCS, INGEST_WAVES, INGEST_QUESTIONS, INGEST_K = 65_536, 16, 64, 4
 LONG_EMBEDDER = dict(
     vocab_size=32768, d_model=512, n_heads=8, n_layers=6, d_ff=2048, max_len=512, embed_dim=512,
 )
-LONG_DOCS, LONG_WAVES, LONG_QUESTIONS, LONG_K = 16_384, 8, 64, 4
+# (16,384 documents, 63 s on a slow host, before the gateway, swap and
+# rescale phases joined the script: cut for their time)
+LONG_DOCS, LONG_WAVES, LONG_QUESTIONS, LONG_K = 8_192, 8, 64, 4
 LONG_SHORT_WORDS, LONG_LONG_WORDS = (40, 120), (300, 900)
 # the same encoder at f32 through the kernel: LONG_F32_CHUNKS of the
 # store's chunks against the plain attention route on the card, and
@@ -208,19 +240,20 @@ ANN_ROWS, ANN_DIM, ANN_SEED = 1_000_000, 64, 7
 ANN_BATCH, ANN_K, ANN_NPROBE, ANN_CANDIDATES = 32, 10, 16, 1024
 ANN_FRONTIER = (4, 16, 64)  # bench.py's bench_ann_frontier
 ANN_MIN_RECALL = 0.93  # the JAX package's 1-CPU run recorded 0.941 on these bytes
-# the incremental index runs over 1/32 of the slab's random-token rows plus
+# the incremental index runs over 1/64 of the slab's random-token rows plus
 # all its text rows: its host retrain took 193-312 s over all 1,050,705
-# rows, 187-267 s over half of them, 116-151 s over a quarter and 130 s over
-# an eighth (its PQ codebooks train on at most 131,072 rows), the larger
-# part of the script's time
-ANN_INDEX_DOCS = N_DOCS // 32
+# rows, 187-267 s over half of them, 116-151 s over a quarter, 130 s over
+# an eighth (its PQ codebooks train on at most 131,072 rows) and 29-35 s
+# over 1/32, the larger part of the script's time
+ANN_INDEX_DOCS = N_DOCS // 64
 # churn of the incremental index: waves of removes and fresh adds, a search after each
 CHURN_WAVES, CHURN_WAVE = 16, 256
-# the tiered index: the same rows cut to 32,768 (all text rows, the rest
-# random-token rows): its host numpy retrain took 149 s at 131,072 rows and
-# 41-48 s at 65,536 on the 8 host CPUs of an H100 machine; m 48 as the
-# flagship width's auto_subvectors; 4 churn waves, a rebalance after each
-TIERED_ROWS, TIERED_SUBVECTORS, TIERED_CHURN_WAVES = 32_768, 48, 4
+# the tiered index: the same rows cut to 16,384 (all text rows, the rest
+# random-token rows): its host numpy retrain took 149 s at 131,072 rows,
+# 41-48 s at 65,536 and 26-31 s at 32,768 on the 8 host CPUs of an H100
+# machine; m 48 as the flagship width's auto_subvectors; 4 churn waves, a
+# rebalance after each
+TIERED_ROWS, TIERED_SUBVECTORS, TIERED_CHURN_WAVES = 16_384, 48, 4
 # the vector store: the texts phase's chunks behind VectorStoreServer's
 # default embedder, 32 REST queries at k 4
 VS_QUERIES, VS_K = 32, 4
@@ -251,8 +284,9 @@ MESH_KNN_ATOL = 1e-5
 # mesh_exchange: the skewed mix sends half of the rows to shard 0; the
 # engine groupby of tests/test_rescale_exchange.py at a deployment's size
 EXCHANGE_SKEW = 0.5
-# (131,072 groupby rows before long_embed joined the script; halved for its time)
-GROUPBY_ROWS, GROUPBY_GROUPS = 65_536, 64
+# (131,072 groupby rows before long_embed joined the script, 65,536 before
+# the gateway, swap and rescale phases did; halved for their time)
+GROUPBY_ROWS, GROUPBY_GROUPS = 32_768, 64
 # mesh_tp over (data 2, model 2): bf16 activations round at other points
 # than the unsharded forward's (f32 partial sums added across the model
 # shards, then rounded once), so unit-norm embeddings within 2^-6 and the
@@ -292,14 +326,14 @@ def ptxas_report(log: str) -> dict:
     <bf16, 64>": ...), and the compiler's advisories (a serialized wgmma
     pipeline, an injected wait)."""
     kernels, advisories, name = {}, [], None
-    short = {"13__nv_bfloat16": "bf16", "6__half": "f16"}
+    short = {"13__nv_bfloat16": "bf16", "6__half": "f16", "f": "f32"}
     for ln in log.splitlines():
         if "Compiling entry function" in ln and "_kernelI" in ln:
             # the mangled name's last identifier is `<length><name>_kernel`
             end = ln.index("_kernelI") + len("_kernel")
             base = next(ln[end - n:end] for n in range(len("_kernel"), end)
                         if ln[end - n - len(str(n)):end - n] == str(n))
-            args = re.findall(r"13__nv_bfloat16|6__half|(?<=Li)\d+(?=E)", ln[end:].split("EEv")[0] + "E")
+            args = re.findall(r"13__nv_bfloat16|6__half|(?<=I)f(?=L)|(?<=Li)\d+(?=E)", ln[end:].split("EEv")[0] + "E")
             name = f"{base}<{', '.join(short.get(a, a) for a in args)}>"
         elif "Potential Performance Loss" in ln or "is injected" in ln:
             advisories.append(ln.split("ptxas info    : ")[-1][:240])
@@ -1201,9 +1235,15 @@ def run_host_engine(device, *, wordcount_rows: int, emb_kw: dict, chat_kw: dict,
 # sources split across the processes), chunked with rag_ingest's splitter,
 # embedded by TorchEmbedder where they were read, then two mesh crossings
 # (a groupby over documents, a join back to the chunks). Each process
-# writes its share of the final table and its own counts.
+# writes its share of the final table and its own counts. With a shared
+# persistence root (`pdir`, elastic_rescale under the supervisor) the
+# shards are read as they grow, each process reports how many rows it
+# has delivered every 0.1 s, a `stop` file ends the run, and every
+# process of every generation writes what it delivered under its own OS
+# pid when its run ends, by a rebalance too.
 SPAWN_EMBED_SCRIPT = """
 import json, os, sys, threading, time
+from time import time as wall
 
 CFG = json.load(open(sys.argv[1]))
 sys.path.insert(0, CFG["root"])
@@ -1220,6 +1260,8 @@ from pathway_tpu_torch.xpacks.llm.splitters import TokenCountSplitter
 
 PID = int(os.environ.get("PATHWAY_PROCESS_ID", "0"))
 N = int(os.environ.get("PATHWAY_PROCESSES", "1"))
+ELASTIC = bool(CFG.get("pdir"))
+TAG = f"{PID}.{os.getpid()}" if ELASTIC else str(PID)
 
 kw = {}
 if CFG.get("embedder"):
@@ -1263,7 +1305,7 @@ class Doc(pw.Schema):
 
 
 shards = [
-    pw.io.jsonlines.read(path, schema=Doc, mode="streaming", autocommit_duration_ms=50, _single_pass=True)
+    pw.io.jsonlines.read(path, schema=Doc, mode="streaming", autocommit_duration_ms=50, _single_pass=not ELASTIC)
     for path in CFG["shards"]
 ]
 docs = shards[0].concat_reindex(*shards[1:]).with_id_from(pw.this.doc)
@@ -1282,6 +1324,7 @@ out = embedded.join(per_doc, embedded.doc == per_doc.doc).select(
 )
 rows = {}
 retractions = [0]
+stamps = []  # wall clock of the first and the last delivery
 
 
 def on_change(key, row, time, is_addition):
@@ -1289,37 +1332,69 @@ def on_change(key, row, time, is_addition):
     # makes it: a retraction would be a fault, counted for the caller
     if is_addition:
         rows[key.value] = row
+        stamps[1:] = [wall()] if stamps else [wall(), wall()]
     else:
         retractions[0] += 1
 
 
+def report_progress():
+    path = CFG["out"] + f".{TAG}.progress"
+    with open(path + ".tmp", "w") as f:
+        json.dump(dict(process=PID, processes=N, rows=len(rows)), f)
+    os.replace(path + ".tmp", path)
+
+
+def watch():
+    from pathway_tpu_torch.internals import run as run_mod
+
+    while True:
+        report_progress()
+        if os.path.exists(CFG["stop"]):
+            run_mod.stop_current_run()
+        time.sleep(0.1)
+
+
 pw.io.subscribe(out, on_change=on_change)
 _build.reset_launch_counts()
-t0 = time.perf_counter()
-pw.run()
-seconds = time.perf_counter() - t0
-launches = _build.LAUNCHES.get(KERNEL, 0)
-keys = sorted(rows)
-e = emb.config.embed_dim
-np.savez(
-    CFG["out"] + f".{PID}.npz",
-    key_hi=np.array([k >> 64 for k in keys], np.uint64),
-    key_lo=np.array([k & ((1 << 64) - 1) for k in keys], np.uint64),
-    doc=np.array([rows[k]["doc"] for k in keys], np.int64),
-    idx=np.array([rows[k]["idx"] for k in keys], np.int64),
-    n_chunks=np.array([rows[k]["n_chunks"] for k in keys], np.int64),
-    doc_chars=np.array([rows[k]["doc_chars"] for k in keys], np.int64),
-    text=np.array([rows[k]["text"] for k in keys], dtype=str),
-    vec=np.stack([np.asarray(rows[k]["vec"], np.float32) for k in keys]) if keys
-    else np.zeros((0, e), np.float32),
-)
-with open(CFG["out"] + f".{PID}.json", "w") as f:
-    json.dump(dict(
-        process=PID, processes=N, device=str(emb.device), attention_launches=launches,
-        embedded_rows=embedded_rows[0], encoder_dispatches=emb.dispatches, output_rows=len(keys),
-        retractions=retractions[0],
-        run_seconds=seconds, device_idle_share="not measured",
-    ), f)
+persistence = None
+if ELASTIC:
+    persistence = pw.persistence.Config(pw.persistence.Backend.filesystem(CFG["pdir"]))
+    threading.Thread(target=watch, daemon=True).start()
+
+
+def write_output():
+    seconds = time.perf_counter() - t0
+    keys = sorted(rows)
+    e = emb.config.embed_dim
+    np.savez(
+        CFG["out"] + f".{TAG}.npz",
+        key_hi=np.array([k >> 64 for k in keys], np.uint64),
+        key_lo=np.array([k & ((1 << 64) - 1) for k in keys], np.uint64),
+        doc=np.array([rows[k]["doc"] for k in keys], np.int64),
+        idx=np.array([rows[k]["idx"] for k in keys], np.int64),
+        n_chunks=np.array([rows[k]["n_chunks"] for k in keys], np.int64),
+        doc_chars=np.array([rows[k]["doc_chars"] for k in keys], np.int64),
+        text=np.array([rows[k]["text"] for k in keys], dtype=str),
+        vec=np.stack([np.asarray(rows[k]["vec"], np.float32) for k in keys]) if keys
+        else np.zeros((0, e), np.float32),
+    )
+    with open(CFG["out"] + f".{TAG}.json", "w") as f:
+        json.dump(dict(
+            process=PID, processes=N, device=str(emb.device), attention_launches=_build.LAUNCHES.get(KERNEL, 0),
+            embedded_rows=embedded_rows[0], encoder_dispatches=emb.dispatches, output_rows=len(keys),
+            retractions=retractions[0], run_seconds=seconds, device_idle_share="not measured",
+            run_started_at=started, first_row_at=stamps[0] if stamps else None,
+            last_row_at=stamps[-1] if stamps else None, exited_at=wall(),
+        ), f)
+    if ELASTIC:
+        report_progress()
+
+
+t0, started = time.perf_counter(), wall()
+try:
+    pw.run(persistence_config=persistence)
+finally:
+    write_output()
 """
 # the embeddings of -n 2 against -n 1: the same chunks embedded in other
 # batches (another row bucket, another row order in a bucket), so a chunk's
@@ -1328,8 +1403,9 @@ SPAWN_EMBED_ATOL = INGEST_SCORE_ATOL
 SPAWN_SHARDS = 4
 # rag_ingest's documents were 131,072 before long_embed joined the script
 # (121.6 s for both runs; 65,536 took 123.8 s, mostly process start-up and
-# `-n 2`'s shared host): cut for room in the script's time
-SPAWN_DOCS = 16_384
+# `-n 2`'s shared host), 16,384 before elastic_rescale ran them once more:
+# cut for room in the script's time
+SPAWN_DOCS = 8_192
 
 
 def save_params(tree: dict, path: Path) -> None:
@@ -1459,6 +1535,170 @@ def run_spawn_embed(device, emb_kw: dict | None, texts: list[str], *, n_docs: in
     emit(row)
     if not row["equal_direct_split"] or not equal or max_err > embed_atol:
         raise AssertionError(f"the spawned runs disagree: {row}")
+    return row
+
+
+# ------------------------------------------------------------ elastic_rescale
+
+
+def _progress(outdir: Path) -> list[dict]:
+    """The latest progress report of every process of every generation
+    of an elastic run (SPAWN_EMBED_SCRIPT writes them whole)."""
+    out = []
+    for path in outdir.glob("out.*.progress"):
+        with contextlib.suppress(OSError, ValueError):
+            out.append(json.loads(path.read_text()))
+    return out
+
+
+def run_elastic_rescale(device, emb_kw: dict | None, texts: list[str], *, n_docs: int, shards: int,
+                        workdir: Path, static: dict, embed_atol: float = SPAWN_EMBED_ATOL,
+                        timeout_s: float = 600.0) -> dict:
+    """`elastic_rescale`: spawn_embed's documents and pipeline under the
+    port's supervisor (`parallel/supervisor.py:run_supervised`, elastic
+    membership on a shared persistence root), started at 2 processes on
+    the card. The first half of the documents is in the shards at the
+    start; once process 0 delivers rows, a join intent
+    (`parallel/membership.py:announce_join`) grows the mesh to 3 at a
+    checkpoint fence; once the 3 are up, the second half is appended and
+    the run ends when every chunk is delivered. Exactly one rebalance and
+    3 members at the end; the delivered table equals `static`'s (spawn
+    -n N outputs by N, from run_spawn_embed): keys, counts and texts
+    exactly, embeddings within `embed_atol`. Documents/s are read by
+    generation from the processes' own first and last deliveries."""
+    import threading
+
+    import numpy as np
+
+    from pathway_tpu_torch.parallel import membership, supervisor
+    from pathway_tpu_torch.xpacks.llm.splitters import TokenCountSplitter
+
+    docs = ingest_corpus(texts, n_docs, seed=0)
+    splitter = TokenCountSplitter(min_tokens=50, max_tokens=250, tokenize_fn=str.split)
+    n_chunks = sum(len(splitter.chunk(d)) for d in docs)
+    outdir = workdir / "elastic"
+    outdir.mkdir(parents=True)
+    paths = [outdir / f"docs-{i}.jsonl" for i in range(shards)]
+
+    def write(first: bool) -> None:
+        for i, path in enumerate(paths):
+            with open(path, "a") as f:
+                f.write("".join(json.dumps({"doc": j, "text": docs[j]}) + "\n"
+                                for j in range(i, n_docs, shards) if (j < n_docs // 2) == first))
+
+    write(first=True)
+    script = outdir / "spawn_embed_pipeline.py"
+    script.write_text(SPAWN_EMBED_SCRIPT)
+    pdir, stop = outdir / "pstate", outdir / "STOP"
+    cfg = dict(root=str(ROOT), shards=[str(p) for p in paths], out=str(outdir / "out"), embedder=emb_kw,
+               device=device, pdir=str(pdir), stop=str(stop))
+    (outdir / "cfg.json").write_text(json.dumps(cfg))
+    supervised: dict = {}
+
+    def supervise() -> None:
+        try:
+            supervised["result"] = supervisor.run_supervised(
+                [sys.executable, str(script), str(outdir / "cfg.json")], 2, free_port_base(3),
+                env={"PYTHONPATH": str(ROOT)}, timeout_s=timeout_s, state_dir=str(pdir))
+        except Exception as e:  # noqa: BLE001 — re-raised below with what the run left
+            supervised["error"] = e
+
+    def wait_for(what: str, cond) -> float:
+        deadline = time.perf_counter() + timeout_s
+        while not cond():
+            if not thread.is_alive():
+                raise AssertionError(f"elastic_rescale: the mesh ended before {what}: {supervised}")
+            if time.perf_counter() > deadline:
+                stop.touch()
+                raise AssertionError(f"elastic_rescale: no {what} within {timeout_s} s")
+            time.sleep(0.05)
+        return time.time()
+
+    t0 = time.time()
+    thread = threading.Thread(target=supervise, name="elastic-supervisor")
+    thread.start()
+    try:
+        wait_for("delivery of 2 processes", lambda: any(
+            p["processes"] == 2 and p["rows"] > 0 for p in _progress(outdir)))
+        announced = time.time()
+        membership.announce_join(str(pdir))
+        grown = wait_for("generation of 3 processes", lambda: len(
+            {p["process"] for p in _progress(outdir) if p["processes"] == 3}) == 3)
+        write(first=False)
+        wait_for("delivery of every chunk", lambda: sum(p["rows"] for p in _progress(outdir)) >= n_chunks)
+        stop.touch()
+    finally:
+        stop.touch()
+        thread.join(timeout=timeout_s)
+    wall_s = time.time() - t0
+    if "error" in supervised or "result" not in supervised:
+        raise AssertionError(f"elastic_rescale: the supervised mesh failed: {supervised}")
+    res = supervised["result"]
+
+    stats = [json.loads(p.read_text()) for p in sorted(outdir.glob("out.*.json"))]
+    out_doc_by_pid: dict[int, list] = {}  # the documents each generation delivered
+    for st, z in zip(stats, [np.load(p) for p in sorted(outdir.glob("out.*.npz"))]):
+        out_doc_by_pid.setdefault(st["processes"], []).extend(z["doc"].tolist())
+    out = read_spawn_output(outdir)
+    key = out["key_hi"].astype(object) * (1 << 64) + out["key_lo"].astype(object)
+    _, first = np.unique(key, return_index=True)
+    duplicates = len(key) - len(first)
+    out = {k: v[first] for k, v in out.items()}  # sorted by key, one row a key
+    exact = ("key_hi", "key_lo", "doc", "idx", "n_chunks", "doc_chars", "text")
+    equal, max_err = {}, {}
+    for n, other in static.items():
+        equal[n] = all(np.array_equal(out[k], other[k]) for k in exact)
+        max_err[n] = float(np.abs(out["vec"] - other["vec"]).max(initial=0.0)) if equal[n] else None
+
+    by_gen = {}
+    for st in stats:
+        g = by_gen.setdefault(st["processes"], dict(processes=0, chunks=0, started=None, last=None, exited=None,
+                                                    attention_launches=0, devices=set()))
+        g["processes"] += 1
+        g["chunks"] += st["output_rows"]
+        g["attention_launches"] += st["attention_launches"]
+        g["devices"].add(st["device"])
+        for k, pick, v in (("started", min, st["run_started_at"]), ("last", max, st["last_row_at"]),
+                           ("exited", max, st["exited_at"])):
+            if v is not None:
+                g[k] = v if g[k] is None else pick(g[k], v)
+    # a generation's work runs from its pw.run() (the 3, from the append
+    # of the second half) to its last delivery
+    gens = {}
+    for n, g in sorted(by_gen.items()):
+        begin = grown if n == 3 else g["started"]
+        span = g["last"] - begin if g["last"] is not None else None
+        docs_n = len(set(out_doc_by_pid.get(n, ())))
+        gens[n] = dict(processes=g["processes"], chunks=g["chunks"], documents=docs_n, seconds=span,
+                       documents_per_s=docs_n / span if span else None,
+                       chunks_per_s=g["chunks"] / span if span else None,
+                       attention_launches=g["attention_launches"], devices=sorted(g["devices"]))
+    on_card = device is None or str(device).startswith("cuda")
+    row = dict(
+        phase="elastic_rescale", card=gpu_name_and_power() if on_card else "cpu", documents=n_docs,
+        chunks=n_chunks, shards=shards, rebalances=res["rebalances"],
+        members=res["members"], generations=res["generations"], wall_s=wall_s,
+        rebalance_s=grown - announced, quiesce_s=(by_gen.get(2, {}).get("exited") or announced) - announced,
+        by_members=gens, delivered=len(out["doc"]), duplicates=duplicates, equal_static=equal,
+        max_abs_err_static=max_err, embed_atol=embed_atol,
+        retractions=sum(st["retractions"] for st in stats),
+        attention_launches=sum(st["attention_launches"] for st in stats),
+    )
+    emit(row)
+    faults_found = []
+    if res["rebalances"] != 1 or res["members"] != 3 or set(gens) != {2, 3}:
+        faults_found.append("not one rebalance from 2 to 3 members")
+    if not all(equal.values()) or any(e is None or e > embed_atol for e in max_err.values()):
+        faults_found.append("the delivered table differs from the static runs'")
+    if row["retractions"] or len(out["doc"]) != n_chunks:
+        faults_found.append("a retraction, or not every chunk once")
+    if any(not g["chunks"] for g in gens.values()):
+        faults_found.append("a generation delivered nothing")
+    if on_card and any(g["attention_launches"] <= 0 or not all(d.startswith("cuda") for d in g["devices"])
+                       for g in gens.values()):
+        faults_found.append("a generation embedded off the attention kernel on the card")
+    if faults_found:
+        raise AssertionError(f"elastic_rescale: {faults_found}: {row}")
     return row
 
 
@@ -2125,7 +2365,7 @@ def run_vector_store(device, emb_kw: dict, texts: list[str], *, n_queries: int, 
     import torch
 
     import pathway_tpu_torch as pw
-    from pathway_tpu_torch import TorchEmbedder, VectorSlabIndex
+    from pathway_tpu_torch import TorchEmbedder
     from pathway_tpu_torch.internals import run as run_mod
     from pathway_tpu_torch.internals.parse_graph import G
     from pathway_tpu_torch.models.transformer import embedder_config
@@ -2187,11 +2427,7 @@ def run_vector_store(device, emb_kw: dict, texts: list[str], *, n_queries: int, 
 
     # the same embeddings in a slab built directly on the same device; each
     # query alone, as the REST path embeds it
-    direct = VectorSlabIndex(dimensions=emb.config.embed_dim, reserved_space=len(texts), device=dev)
-    cap = emb._plane.buckets.max_rows
-    for s in range(0, len(texts), cap):
-        for j, v in enumerate(emb.encode_many(texts[s:s + cap])):
-            direct.add(s + j, v)
+    direct = slab_of(emb, texts, dev)
     mismatches, near_ties, self_top1 = [], 0, 0
     for q, ans in zip(queries, answers):
         got_q = sorted((float(a["dist"]), a["text"]) for a in ans)
@@ -2234,6 +2470,510 @@ def run_vector_store(device, emb_kw: dict, texts: list[str], *, n_queries: int, 
     return dict(row, launches=launches + rr_launches)
 
 
+# ------------------------------------------------------------ gateway_overload
+
+
+# scripts/serving_loadgen.py's rungs as bench.py runs them (bench.py:2083-2110):
+# (label, closed-loop clients, seconds, the gateway's max_queue or None for
+# no gateway, ms of straggler on every request)
+GATEWAY_RUNGS = (
+    ("clients_100", 100, 5.0, 64, 0.0),
+    ("clients_1000", 1000, 6.0, 256, 0.0),
+    ("straggler_gateway", 100, 5.0, 16, 20.0),
+    ("straggler_no_gateway", 100, 5.0, None, 20.0),
+)
+GATEWAY_K = 4
+GATEWAY_RETRY_CAP_S = 0.25  # the loadgen's: a 429 waits out its Retry-After up to this
+GATEWAY_TIMEOUT_S = 30.0  # the loadgen's rest_connector timeout
+
+
+def percentile_ms(xs: list[float], p: float) -> float | None:
+    """scripts/serving_loadgen.py's nearest-rank percentile, of seconds, in ms."""
+    if not xs:
+        return None
+    xs = sorted(xs)
+    return 1e3 * xs[min(int(round(p / 100.0 * (len(xs) - 1))), len(xs) - 1)]
+
+
+async def closed_loop(url: str, clients: int, seconds: float, texts: list[str]) -> dict:
+    """scripts/serving_loadgen.py's client fleet: each client POSTs a text,
+    awaits the answer and POSTs the next until `seconds` pass; a 429 waits
+    out its Retry-After up to GATEWAY_RETRY_CAP_S. Every answer is kept
+    beside the text that asked for it."""
+    import aiohttp
+
+    counts = {"ok": 0, "shed": 0, "shed_without_retry_after": 0, "timeout": 0, "error": 0}
+    answers, latencies, stamps, errors = [], [], [], []
+    stop_at = time.perf_counter() + seconds
+    timeout = aiohttp.ClientTimeout(total=GATEWAY_TIMEOUT_S + 30)
+    async with aiohttp.ClientSession(connector=aiohttp.TCPConnector(limit=0), timeout=timeout) as sess:
+
+        async def client(i: int) -> None:
+            n = 0
+            while time.perf_counter() < stop_at:
+                text = texts[(i * 7919 + n) % len(texts)]
+                n += 1
+                t0 = time.perf_counter()
+                try:
+                    async with sess.post(url, json={"query": text, "user": f"u{i}"}) as resp:
+                        body = await resp.read()
+                        if resp.status == 200:
+                            counts["ok"] += 1
+                            latencies.append(time.perf_counter() - t0)
+                            stamps.append(time.perf_counter())
+                            answers.append((text, json.loads(json.loads(body))))
+                        elif resp.status == 429:
+                            counts["shed"] += 1
+                            retry_after = resp.headers.get("Retry-After")
+                            counts["shed_without_retry_after"] += retry_after is None
+                            await asyncio.sleep(min(float(retry_after or 1), GATEWAY_RETRY_CAP_S))
+                        elif resp.status == 504:
+                            counts["timeout"] += 1
+                        else:
+                            counts["error"] += 1
+                            errors.append(f"HTTP {resp.status}: {body[:200]!r}")
+                except (aiohttp.ClientError, asyncio.TimeoutError, OSError) as e:
+                    counts["error"] += 1
+                    errors.append(repr(e)[:200])
+                    await asyncio.sleep(0.05)
+
+        await asyncio.gather(*(client(i) for i in range(clients)))
+    return dict(counts, answers=answers, latencies=latencies, stamps=stamps, errors=errors[:5])
+
+
+def serve_retrieval(emb, index, k: int, max_queue: int | None, straggle_s: float):
+    """scripts/serving_loadgen.py's server on the port: `rest_connector`
+    (behind a `ServingGateway` of `max_queue` unless it is None) into a
+    stage that embeds each wave's queries with `emb` (one coalesced
+    dispatch) and answers each with its top-k of `index`, probing the
+    `serving.straggler` fault point first (a hit sleeps `straggle_s`).
+    `pw.run()` runs in a thread; returns (url, gateway, stop), once the
+    route answers."""
+    import socket
+    import threading
+
+    import numpy as np
+    import requests
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.engine import faults
+    from pathway_tpu_torch.internals import run as run_mod
+    from pathway_tpu_torch.internals.parse_graph import G
+
+    G.clear()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    gateway = None if max_queue is None else pw.serving.ServingGateway(max_queue=max_queue)
+    webserver = pw.io.http.PathwayWebserver(host="127.0.0.1", port=port)
+    queries, writer = pw.io.http.rest_connector(
+        webserver=webserver, route="/answer", schema=pw.schema_from_types(query=str, user=str),
+        gateway=gateway, delete_completed_queries=True, timeout_s=GATEWAY_TIMEOUT_S,
+    )
+
+    @pw.udf
+    def answer(query: str, vec) -> str:
+        if faults.fire("serving.straggler"):
+            time.sleep(straggle_s)
+        hits = index.search(np.asarray(vec, np.float32), k)
+        return json.dumps({"query": query, "hits": [[int(key), float(dist)] for key, dist in hits]})
+
+    embedded = queries.select(query=pw.this.query, vec=emb(pw.this.query))
+    writer(embedded.select(result=answer(pw.this.query, pw.this.vec)))
+    thread = threading.Thread(target=pw.run, daemon=True, name="gateway-run")
+    thread.start()
+    url = f"http://127.0.0.1:{port}/answer"
+
+    def stop() -> None:
+        run_mod.stop_current_run()
+        webserver.stop()
+        thread.join(timeout=60)
+        G.clear()
+
+    deadline = time.perf_counter() + 120
+    while True:
+        try:
+            if requests.post(url, json={"query": "warm-up", "user": "w"}, timeout=60).status_code == 200:
+                return url, gateway, stop
+        except requests.RequestException:
+            pass
+        if time.perf_counter() > deadline:
+            stop()
+            raise AssertionError(f"the gateway's pipeline did not answer on {url}")
+        time.sleep(0.1)
+
+
+def direct_answers(emb, index, texts: list[str], k: int) -> dict[str, list]:
+    """Each text's top-k of `index`, the text embedded by `emb` outside
+    any pipeline: the answer a served request must equal."""
+    uniq = sorted(set(texts))
+    cap = emb._plane.buckets.max_rows
+    out = {}
+    for s in range(0, len(uniq), cap):
+        for text, vec in zip(uniq[s:s + cap], emb.encode_many(uniq[s:s + cap])):
+            out[text] = [(int(key), float(dist)) for key, dist in index.search(vec, k)]
+    return out
+
+
+def compare_answers(answers: list, direct: dict[str, list]) -> tuple[list, int, int]:
+    """Served answers against the direct ones, as (distance, key) after
+    the sort: (mismatches, near ties, answers crossed with another
+    request's). A near tie is another key at a distance within
+    INGEST_SCORE_ATOL (the query embedded in another batch)."""
+    mismatches, near_ties, crossed = [], 0, 0
+    for text, ans in answers:
+        if ans["query"] != text:
+            crossed += 1
+            continue
+        got = sorted((dist, key) for key, dist in ans["hits"])
+        want = sorted((dist, key) for key, dist in direct[text])
+        if len(got) != len(want) or any(abs(g[0] - w[0]) > INGEST_SCORE_ATOL for g, w in zip(got, want)):
+            mismatches.append((text, got, want))
+            continue
+        near_ties += sum(g[1] != w[1] for g, w in zip(got, want))
+    return mismatches, near_ties, crossed
+
+
+def slab_of(emb, texts: list[str], device):
+    """A `VectorSlabIndex` on `device` holding `texts` (key i: text i) as
+    `emb` embeds them in bulk."""
+    from pathway_tpu_torch import VectorSlabIndex
+
+    index = VectorSlabIndex(dimensions=emb.config.embed_dim, reserved_space=len(texts), device=device)
+    cap = emb._plane.buckets.max_rows
+    for s in range(0, len(texts), cap):
+        for j, vec in enumerate(emb.encode_many(texts[s:s + cap])):
+            index.add(s + j, vec)
+    return index
+
+
+def run_gateway_overload(device, emb_kw: dict, texts: list[str], *, rungs=GATEWAY_RUNGS,
+                         k: int = GATEWAY_K) -> dict:
+    """`gateway_overload`: scripts/serving_loadgen.py's closed-loop rungs
+    against the port's server of its shape (`serve_retrieval`): the
+    default `TorchEmbedder` and a `VectorSlabIndex` of `texts` on the
+    card. For each rung: p50 and p99, goodput (200s a second), 429s, the
+    gateway's counters, the pending high water, K1 launches and the
+    device idle share. Every 200 must equal a direct slab query of its
+    text, echo its own text (none crossed), and no request may fail but
+    with a 429 that carries Retry-After; under the straggler the gateway
+    must shed and hold its pending requests to max_queue, and the run
+    without it must pile up every client. Runs on the CPU too (a CPU
+    embedder and slab, small rungs), for a rehearsal."""
+    import resource
+    import threading
+
+    import torch
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch import TorchEmbedder
+    from pathway_tpu_torch.engine import faults
+    from pathway_tpu_torch.models.transformer import embedder_config
+    from pathway_tpu_torch.ops import _build
+    from pathway_tpu_torch.ops.attention import KERNEL
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    # a thousand clients and their server sockets in one process
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    if soft != resource.RLIM_INFINITY and soft < 4096:
+        resource.setrlimit(resource.RLIMIT_NOFILE, (min(4096, hard), hard))
+    if on_card:
+        emb = TorchEmbedder()  # the default embedder, on the card
+        if dataclasses.asdict(emb.config) != dataclasses.asdict(embedder_config(**emb_kw)):
+            raise AssertionError(f"the default embedder is not {emb_kw}: {emb.config}")
+    else:
+        emb = TorchEmbedder(embedder_config(**emb_kw), device=dev)
+    t0 = time.perf_counter()
+    index = slab_of(emb, texts, dev)
+    index_s = time.perf_counter() - t0
+    rows, all_answers = {}, []
+    for label, clients, seconds, max_queue, straggle_ms in rungs:
+        faults.install("serving.straggler@1+" if straggle_ms else None)
+        url, gateway, stop = serve_retrieval(emb, index, k, max_queue, straggle_ms / 1e3)
+        try:
+            depth, sampling = [], threading.Event()
+
+            def sample() -> None:
+                while not sampling.is_set():
+                    depth.append(int(pw.io.http.route_stats()["/answer"]["pending"]))
+                    sampling.wait(0.05)
+
+            sampler = threading.Thread(target=sample, daemon=True)
+            sampler.start()
+            _build.reset_launch_counts()
+            raw: dict = {}
+            window = run_window(lambda: raw.update(asyncio.run(closed_loop(url, clients, seconds, texts))),
+                                on_card)
+            sampling.set()
+            sampler.join(timeout=5)
+            launches = _build.LAUNCHES.get(KERNEL, 0)
+            route = pw.io.http.route_stats()["/answer"]
+            snap = gateway.snapshot()["/answer"] if gateway is not None else None
+        finally:
+            stop()
+            faults.install(None)
+        all_answers += raw["answers"]
+        rows[label] = dict(
+            clients=clients, seconds=seconds, gateway=gateway is not None, max_queue=max_queue,
+            straggler_ms=straggle_ms, ok=raw["ok"], shed_429=raw["shed"],
+            shed_without_retry_after=raw["shed_without_retry_after"], timeouts=raw["timeout"],
+            errors=raw["error"], first_errors=raw["errors"],
+            p50_ms=percentile_ms(raw["latencies"], 50), p99_ms=percentile_ms(raw["latencies"], 99),
+            goodput_rps=raw["ok"] / window["seconds"], window_s=window["seconds"],
+            max_pending=route["max_pending"], sampled_max_pending=max(depth, default=0),
+            pending_after=route["pending"], gateway_stats=snap, attention_launches=launches,
+            device_busy_ms=window["device_busy_ms"], device_idle_share=window["device_idle_share"],
+        )
+    direct = direct_answers(emb, index, [text for text, _ in all_answers], k)
+    mismatches, near_ties, crossed = compare_answers(all_answers, direct)
+    row = dict(
+        phase="gateway_overload", card=gpu_name_and_power() if on_card else "cpu", chunks=len(texts), k=k,
+        index_s=index_s, rungs=rows,
+        answers_checked=len(all_answers), mismatches=len(mismatches), near_ties=near_ties,
+        crossed=crossed, score_atol=INGEST_SCORE_ATOL,
+        first_mismatch=str(mismatches[0])[:600] if mismatches else None,
+    )
+    emit(row)
+    faults_found = []
+    for label, r in rows.items():
+        if r["errors"] or r["timeouts"] or r["shed_without_retry_after"] or r["pending_after"] or not r["ok"]:
+            faults_found.append(f"{label}: a request failed other than by a 429 with Retry-After, or none answered")
+        if r["gateway"] and r["max_pending"] > r["max_queue"]:
+            faults_found.append(f"{label}: {r['max_pending']} pending past max_queue {r['max_queue']}")
+        if r["straggler_ms"] and r["gateway"] and not (r["shed_429"] and r["gateway_stats"]["shed"]):
+            faults_found.append(f"{label}: the gateway shed nothing under the straggler")
+        if r["straggler_ms"] and not r["gateway"] and r["max_pending"] != r["clients"]:
+            faults_found.append(f"{label}: {r['max_pending']} pending, not all {r['clients']} clients")
+        if on_card and r["attention_launches"] <= 0:
+            faults_found.append(f"{label}: no attention kernel launch")
+    if mismatches or crossed:
+        faults_found.append(f"{len(mismatches)} answers differ from a direct slab query, {crossed} crossed")
+    if faults_found:
+        raise AssertionError(f"gateway_overload: {faults_found}: {row}")
+    return dict(row, launches=sum(r["attention_launches"] for r in rows.values()))
+
+
+# ------------------------------------------------------------ bluegreen_swap
+
+
+# scripts/serving_loadgen.py's --rolling-upgrade on the card: the paced
+# groupby of its UPGRADE_SOLO, persisted with a jsonlines sink through the
+# outbox, whose events also go through the default TorchEmbedder (each
+# event's text embedded on the card; the sink keeps how many embeddings
+# came out unit-norm, a count that does not move with the batch an event
+# is embedded in). Blue runs `argv[3]` events, the green the same plan over
+# a longer stream, each in a process of its own.
+BLUEGREEN_SCRIPT = """
+import json, sys, time
+
+ROOT, OUT, N = sys.argv[1], sys.argv[2], int(sys.argv[3])
+CFG = json.load(open(sys.argv[4]))
+sys.path.insert(0, CFG["root"])
+import numpy as np
+import torch
+
+import pathway_tpu_torch as pw
+from pathway_tpu_torch import TorchEmbedder
+from pathway_tpu_torch.io.python import ConnectorSubject
+from pathway_tpu_torch.models.transformer import embedder_config
+from pathway_tpu_torch.ops import _build
+from pathway_tpu_torch.ops.attention import KERNEL
+
+kw = {}
+if CFG.get("embedder"):
+    ekw = dict(CFG["embedder"])
+    kw["config"] = embedder_config(dtype=getattr(torch, ekw.pop("dtype", "bfloat16")), **ekw)
+if CFG.get("device"):
+    kw["device"] = CFG["device"]
+emb = TorchEmbedder(**kw)
+TEXTS = CFG["texts"]
+
+
+class Events(ConnectorSubject):
+    def run(self):
+        for i in range(N):
+            self.next(g=f"g{i % 4}", v=i, text=TEXTS[i % len(TEXTS)])
+            time.sleep(0.005)
+
+
+@pw.udf
+def unit(vec) -> int:
+    return int(abs(float(np.linalg.norm(vec)) - 1.0) < 1e-2)
+
+
+t = pw.io.python.read(Events(), schema=pw.schema_from_types(g=str, v=int, text=str), name="nums")
+e = t.select(g=pw.this.g, v=pw.this.v, unit=unit(emb(pw.this.text)))
+agg = e.groupby(e.g).reduce(e.g, total=pw.reducers.sum(e.v), n=pw.reducers.count(), unit=pw.reducers.sum(e.unit))
+pw.io.jsonlines.write(agg, OUT)
+_build.reset_launch_counts()
+t0 = time.perf_counter()
+pw.run(persistence_config=pw.persistence.Config(pw.persistence.Backend.filesystem(ROOT)))
+with open(OUT + ".stats.json", "w") as f:
+    json.dump(dict(device=str(emb.device), attention_launches=_build.LAUNCHES.get(KERNEL, 0),
+                   run_seconds=time.perf_counter() - t0), f)
+"""
+BLUEGREEN_EVENTS = (40, 80)  # tests/test_torch_elastic.py's blue and green streams
+BLUEGREEN_CLIENTS, BLUEGREEN_SECONDS, BLUEGREEN_MAX_QUEUE = 50, 6.0, 64  # bench.py's rung
+
+
+def bluegreen_table(n: int) -> dict:
+    """What BLUEGREEN_SCRIPT's sink holds after `n` events: {g: (total, n,
+    unit-norm embeddings)}."""
+    out: dict = {}
+    for i in range(n):
+        total, count, units = out.get(f"g{i % 4}", (0, 0, 0))
+        out[f"g{i % 4}"] = (total + i, count + 1, units + 1)
+    return out
+
+
+def bluegreen_sink_state(path: str) -> dict:
+    """The jsonlines sink's final table, {g: (total, n, unit)}."""
+    state: dict = {}
+    if os.path.exists(path):
+        for line in open(path):
+            rec = json.loads(line)
+            if rec["diff"] > 0:
+                state[rec["g"]] = (rec["total"], rec["n"], rec["unit"])
+            elif state.get(rec["g"]) == (rec["total"], rec["n"], rec["unit"]):
+                del state[rec["g"]]
+    return state
+
+
+def run_bluegreen_swap(device, emb_kw: dict, texts: list[str], *, workdir: Path,
+                       clients: int = BLUEGREEN_CLIENTS, seconds: float = BLUEGREEN_SECONDS) -> dict:
+    """`bluegreen_swap`: scripts/serving_loadgen.py's --rolling-upgrade on
+    the port. A persisted root is written by BLUEGREEN_SCRIPT (blue,
+    `BLUEGREEN_EVENTS[0]` events, embedding on the card); then, a third into
+    `clients` closed-loop clients' `seconds` against the gateway-fronted
+    retrieval server (`serve_retrieval`, the default embedder), a
+    `parallel/bluegreen.py:swap_plan` runs the green (the same plan over
+    `BLUEGREEN_EVENTS[1]` events, a process on the card) against a clone and
+    commits. The swap must commit with the connector offset and the
+    outbox watermark advanced and the green's output equal to the
+    analytic table, and no request may fail but with a 429 while it runs;
+    p99 is split into the swap's window and the rest. Runs on the CPU too
+    (a CPU embedder, a small fleet), for a rehearsal."""
+    import threading
+
+    import torch
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch import TorchEmbedder
+    from pathway_tpu_torch.models.transformer import embedder_config
+    from pathway_tpu_torch.ops import _build
+    from pathway_tpu_torch.ops.attention import KERNEL
+    from pathway_tpu_torch.parallel import bluegreen
+
+    if (os.cpu_count() or 1) < 2:
+        # the green process and the server would share one core: the p99
+        # split would measure the scheduler (the loadgen skips; this raises)
+        raise AssertionError(f"bluegreen_swap needs 2 CPUs or more, the host has {os.cpu_count()}")
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    if on_card:
+        emb = TorchEmbedder()
+        if dataclasses.asdict(emb.config) != dataclasses.asdict(embedder_config(**emb_kw)):
+            raise AssertionError(f"the default embedder is not {emb_kw}: {emb.config}")
+    else:
+        emb = TorchEmbedder(embedder_config(**emb_kw), device=dev)
+    index = slab_of(emb, texts, dev)
+    script = workdir / "bluegreen_pipeline.py"
+    script.write_text(BLUEGREEN_SCRIPT)
+    cfg_path = workdir / "bluegreen_cfg.json"
+    cfg_path.write_text(json.dumps(dict(
+        root=str(ROOT), texts=texts[:64], embedder=None if on_card else dict(emb_kw, dtype="float32"),
+        device=None if on_card else str(device))))
+
+    def run_pipeline(root: str, out: str, n: int) -> dict:
+        r = subprocess.run([sys.executable, str(script), root, out, str(n), str(cfg_path)], capture_output=True,
+                           text=True, timeout=300, env={**os.environ, "PATHWAY_THREADS": "1", "PATHWAY_FAULTS": "0"})
+        if r.returncode != 0:
+            raise RuntimeError(f"the pipeline over {n} events exited {r.returncode}:\n{r.stderr[-3000:]}")
+        return json.loads(Path(out + ".stats.json").read_text())
+
+    blue = str(workdir / "blue")
+    t0 = time.perf_counter()
+    blue_stats = run_pipeline(blue, str(workdir / "blue.jsonl"), BLUEGREEN_EVENTS[0])
+    blue_s = time.perf_counter() - t0
+    blue_meta = pw.persistence.MetadataStore(blue).load() or {}
+    blue_offset = int((blue_meta.get("offsets") or {}).get("nums", -1))
+    blue_outbox = dict(blue_meta.get("outbox") or {})
+
+    swap: dict = {}
+
+    def green(stage: str) -> dict:
+        out = str(workdir / "green.jsonl")
+        swap["green_stats"] = run_pipeline(stage, out, BLUEGREEN_EVENTS[1])
+        return bluegreen_sink_state(out)
+
+    def swapper() -> None:
+        time.sleep(seconds / 3.0)  # the fleet reaches its steady state first
+        swap["t_start"] = time.perf_counter()
+        try:
+            swap["result"] = bluegreen.swap_plan(blue, green, baseline=bluegreen_table(BLUEGREEN_EVENTS[1]))
+        finally:
+            swap["t_end"] = time.perf_counter()
+
+    url, _gateway, stop = serve_retrieval(emb, index, GATEWAY_K, BLUEGREEN_MAX_QUEUE, 0.0)
+    swap_thread = threading.Thread(target=swapper, name="bluegreen-swap")
+    try:
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        swap_thread.start()
+        raw = asyncio.run(closed_loop(url, clients, seconds, texts))
+        wall = time.perf_counter() - t0
+        swap_thread.join(timeout=300)
+        launches = _build.LAUNCHES.get(KERNEL, 0)
+        pending_after = pw.io.http.route_stats()["/answer"]["pending"]
+    finally:
+        stop()
+    if swap_thread.is_alive() or "result" not in swap:
+        raise AssertionError(f"the blue/green swap did not finish: {swap}")
+    res = swap["result"]
+    meta = pw.persistence.MetadataStore(blue).load() or {}
+    offset = int((meta.get("offsets") or {}).get("nums", -1))
+    outbox = dict(meta.get("outbox") or {})
+    during, outside = [], []
+    for stamp, lat in zip(raw["stamps"], raw["latencies"]):
+        (during if swap["t_start"] <= stamp <= swap["t_end"] else outside).append(lat)
+    mismatches, near_ties, crossed = compare_answers(
+        raw["answers"], direct_answers(emb, index, [text for text, _ in raw["answers"]], GATEWAY_K))
+    row = dict(
+        phase="bluegreen_swap", card=gpu_name_and_power() if on_card else "cpu", events=list(BLUEGREEN_EVENTS),
+        blue_s=blue_s, blue=blue_stats,
+        green=swap.get("green_stats"), committed=res["committed"], reason=res["reason"],
+        green_equals_baseline=res["output"] == bluegreen_table(BLUEGREEN_EVENTS[1]),
+        swap_seconds=swap["t_end"] - swap["t_start"], offsets=dict(blue=blue_offset, after=offset),
+        outbox=dict(blue=blue_outbox, after=outbox),
+        blue_retired=os.path.isdir(blue + ".blue-retired"), marker_left=os.path.exists(blue + ".swap.commit"),
+        clients=clients, seconds=seconds, max_queue=BLUEGREEN_MAX_QUEUE, ok=raw["ok"], shed_429=raw["shed"],
+        shed_without_retry_after=raw["shed_without_retry_after"], timeouts=raw["timeout"], errors=raw["error"],
+        first_errors=raw["errors"], goodput_rps=raw["ok"] / wall, p50_ms=percentile_ms(raw["latencies"], 50),
+        p99_ms=percentile_ms(raw["latencies"], 99), ok_during_swap=len(during),
+        p99_ms_during_swap=percentile_ms(during, 99), p99_ms_outside_swap=percentile_ms(outside, 99),
+        pending_after=pending_after, attention_launches=launches, mismatches=len(mismatches),
+        near_ties=near_ties, crossed=crossed, first_mismatch=str(mismatches[0])[:600] if mismatches else None,
+    )
+    emit(row)
+    faults_found = []
+    if not (row["committed"] and row["green_equals_baseline"] and row["blue_retired"]) or row["marker_left"]:
+        faults_found.append("the swap did not commit the green's baseline output")
+    if blue_offset != BLUEGREEN_EVENTS[0] or offset != BLUEGREEN_EVENTS[1] or not blue_outbox or any(
+            int(outbox.get(sink, -1)) < int(off) for sink, off in blue_outbox.items()):
+        faults_found.append("the connector offset or the outbox watermark did not advance")
+    if row["errors"] or row["timeouts"] or row["shed_without_retry_after"] or pending_after or not row["ok"]:
+        faults_found.append("a request failed other than by a 429 with Retry-After, or none answered")
+    if not row["ok_during_swap"]:
+        faults_found.append("no request was answered while the swap ran")
+    if mismatches or crossed:
+        faults_found.append(f"{len(mismatches)} answers differ from a direct slab query, {crossed} crossed")
+    if on_card and min(launches, blue_stats["attention_launches"], (swap.get("green_stats") or {}).get(
+            "attention_launches", 0)) <= 0:
+        faults_found.append("the server, blue or the green launched no attention kernel")
+    if faults_found:
+        raise AssertionError(f"bluegreen_swap: {faults_found}: {row}")
+    return dict(row, launches=launches + blue_stats["attention_launches"] + row["green"]["attention_launches"])
 # ------------------------------------------------------------ phase 3
 
 
@@ -3178,14 +3918,31 @@ def main() -> int:
     store = run_vector_store("cuda", EMBEDDER_DEFAULT, result["text_chunks"], n_queries=VS_QUERIES, k=VS_K)
     emit(dict(phase="vector_store_seconds", seconds=time.perf_counter() - t0))
 
+    # the serving gateway under the loadgen's closed-loop overload, in
+    # front of the default embedder and a slab of the texts phase's chunks
+    t0 = time.perf_counter()
+    gateway = run_gateway_overload("cuda", EMBEDDER_DEFAULT, result["text_chunks"])
+    emit(dict(phase="gateway_overload_seconds", seconds=time.perf_counter() - t0))
+
     # the spawned mesh: rag_ingest's documents through `spawn -n 1` and
     # `-n 2`, each process embedding its share with the default
-    # TorchEmbedder on the card (the children's launches are their own)
+    # TorchEmbedder on the card (the children's launches are their own);
+    # then the same pipeline grown from 2 to 3 processes mid-run, held to
+    # both; then a blue/green swap of a pipeline that embeds on the card
+    # while clients query the gateway
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         spawn = run_spawn_embed(None, None, load_texts(ROOT), n_docs=SPAWN_DOCS, shards=SPAWN_SHARDS,
                                 processes=(1, 2), workdir=Path(tmp))
-    emit(dict(phase="spawn_embed_seconds", seconds=time.perf_counter() - t0))
+        emit(dict(phase="spawn_embed_seconds", seconds=time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        elastic = run_elastic_rescale(None, None, load_texts(ROOT), n_docs=SPAWN_DOCS, shards=SPAWN_SHARDS,
+                                      workdir=Path(tmp),
+                                      static={n: read_spawn_output(Path(tmp) / f"n{n}") for n in (1, 2)})
+        emit(dict(phase="elastic_rescale_seconds", seconds=time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        bluegreen = run_bluegreen_swap("cuda", EMBEDDER_DEFAULT, result["text_chunks"], workdir=Path(tmp))
+        emit(dict(phase="bluegreen_swap_seconds", seconds=time.perf_counter() - t0))
 
     # the approximate tier runs no hand-written kernel (the IVF-PQ search
     # and the reranker are plain PyTorch, as the JAX package leaves them to
@@ -3242,7 +3999,8 @@ def main() -> int:
         source="pathway_tpu_torch/csrc/attention.cu",
         replaces="pathway_tpu/ops/attention.py:38",
         launches=(result["launches"] + engine["launches"] + long_embed["launches"] + store["launches"]
-                  + spawn["attention_launches"] + mesh_launches),
+                  + gateway["launches"] + spawn["attention_launches"] + elastic["attention_launches"]
+                  + bluegreen["launches"] + mesh_launches),
         max_abs_err=max(r["max_abs_err"] for r in rows),
         ms=main_shape["ms"], plain_ms=main_shape["plain_ms"],
         bound_ms=main_shape["bound_ms"], bound_by=main_shape["bound_by"],

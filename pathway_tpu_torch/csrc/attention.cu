@@ -4,7 +4,7 @@
 // Replaces: pathway_tpu/ops/attention.py `_attn_kernel`, the Pallas kernel
 // launched by `fused_qkv_attention` (one launch per encoder layer per
 // embed batch), over its whole contract: qkv in bf16, f16 or f32, any
-// head width that is a multiple of 8 up to 256, any sequence length.
+// head width, any sequence length.
 //
 // What it computes, per (batch row, head): q/k/v are the head's column
 // slices of qkv [b, s, 3d] (offsets hi*dh, d + hi*dh, 2d + hi*dh);
@@ -24,7 +24,7 @@
 // the tensor cores, so bytes up to s ~ 64); and b*h*s*s exponentials, which
 // the SFU takes at 16 a clock an SM (on an H100 SXM at its 700 W limit and
 // 1980 MHz boost clock, 0.51 ms for the 2.1e9 exp2 of b 1024, s 512, h 8,
-// beside 0.64 ms for that shape's bytes at 3.35 TB/s). Three kernels share
+// beside 0.64 ms for that shape's bytes at 3.35 TB/s). Four kernels share
 // the entry point.
 //
 // (1) The short kernel: bf16, head_dim 32 or 64, s <= 128 (the sequence
@@ -59,8 +59,9 @@
 // 512 the tile alone would pass the 255 registers a thread may have. So
 // longer sequences take the tiled kernels.
 //
-// The tiled kernels (2) and (3): everything else (s > 128, f16, f32, head
-// widths other than 32 and 64). Both take 128 queries of one (row, head) a
+// The tiled kernels (2) and (3): everything else with a head width that
+// is a multiple of 8 up to 256 (s > 128, f16, f32, head widths other than
+// 32 and 64). Both take 128 queries of one (row, head) a
 // work item, stream that head's keys once through shared memory in tiles,
 // and keep one online softmax: a running max and sum a row (log2 domain),
 // the f32 ctx accumulator and the sum rescaled by exp2(old max - new max)
@@ -85,8 +86,8 @@
 //   past dh zero-filled in shared memory: zero columns of q and k leave
 //   the scores unchanged, and zero columns of v give ctx columns that are
 //   never stored. A dh that is not a multiple of 8 breaks the 16-byte
-//   alignment of head offsets in the fused layout, and dh > 256 has no
-//   instantiation: the wrapper raises for both.
+//   alignment of head offsets in the fused layout (no tensor map, no
+//   16-byte copy), and dh > 256 has no instantiation: both take (4).
 //
 // (2) f32, in full f32, on `mma.sync`: 8 warps of 16 query rows, block
 // ((bi * n_heads) + hi) * ceil(s / 128) + query block. Key tiles of BK
@@ -159,6 +160,28 @@
 //   the H100; PERF.md): at s 256 and 512, dh 64, the softmax's arithmetic
 //   and the stores of ctx on top of the product pipeline, not L2 (keys
 //   copied once a head read no faster); at s 128, dh 128, the bytes.
+//
+// (4) Any head width: every dh that is not a multiple of 8 (dh 12 has
+// heads at byte 24 of a row) or is past 256, in bf16, f16 and f32. A
+// simple kernel that is right at every width; PERF.md has its times.
+// - Layout: the f32 kernel's, 8 warps of 16 query rows, 128 queries a
+//   block, key tiles of 64. q, k and v come in element by element (any
+//   2-byte offset), or in 16-byte vectors where dh is a multiple of
+//   theirs (8 at 16 bits, 4 at f32: dh 264, 320, 512), converted to f32
+//   into shared memory, in column chunks of C = 16, 32 or 64 (the least
+//   that holds the head, else 64), zero past dh and past s. A head of one
+//   chunk keeps q for the whole block.
+// - Products: m16n8k8 tf32 `mma.sync` with the f32 kernel's fragments. A
+//   bf16 or f16 value is exact in tf32, so one product is exact and sums
+//   in f32, as a 16-bit `mma` would; f32 takes 3xTF32.
+// - Two passes over the keys, as the TPU kernel's arithmetic: the first
+//   keeps each row's running max and sum (scores summed over the chunks);
+//   the second, one C-column chunk of ctx at a time (its accumulator in
+//   registers, so no width runs out of them or of shared memory), takes
+//   the scores again, rounds the normalised probabilities to T and adds
+//   p.v. The scores are taken 1 + ceil(dh / C) times: at dh <= 64 twice.
+// - Store: ctx element by element in T; rows past s and columns past dh
+//   are never written.
 //
 // Built by pathway_tpu_torch/ops/_build.py with nvcc into a shared library
 // with a plain C interface, called through ctypes from
@@ -1322,24 +1345,389 @@ int launch_wgmma_dh(const void* qkv, const void* mask, void* out, int b, int s, 
   return launch_wgmma<T, 256>(qkv, mask, out, b, s, d, n_heads, scale, stream);
 }
 
+// ------------------------------ (4) any head width: chunked, two passes
+
+constexpr int kAnyBK = 64;  // keys a tile
+
+template <int C>
+struct AnyWidth {
+  static constexpr int LD = C + 4;       // row stride in floats: one spare 16-byte chunk
+  static constexpr int NT = kAnyBK / 8;  // n-tiles of a warp's score tile
+  static constexpr int NN = C / 8;       // n-tiles of a warp's ctx chunk
+  // q [kBQ][LD], then k and v [kAnyBK][LD], all f32
+  static constexpr size_t smem = size_t(kBQ + 2 * kAnyBK) * LD * 4;
+  static_assert(C == 16 || C == 32 || C == 64, "a column chunk of 16, 32 or 64");
+};
+
+template <typename T>
+__device__ __forceinline__ float to_f32(T x) {
+  if constexpr (std::is_same<T, float>::value) {
+    return x;
+  } else if constexpr (std::is_same<T, __half>::value) {
+    return __half2float(x);
+  } else {
+    return __bfloat162float(x);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x) {
+  if constexpr (std::is_same<T, float>::value) {
+    return x;
+  } else if constexpr (std::is_same<T, __half>::value) {
+    return __float2half_rn(x);
+  } else {
+    return __float2bfloat16_rn(x);
+  }
+}
+
+// x as a tf32 operand of `mma.sync`: a value that came from bf16 or f16 is
+// exact in tf32 (8 exponent bits, 10 mantissa bits: the low 13 bits of its
+// f32 pattern are zero) and goes as it is; an f32 value splits in two
+template <bool SPLIT>
+__device__ __forceinline__ void tf32_operand(float x, uint32_t& big, uint32_t& small) {
+  if constexpr (SPLIT) {
+    split_tf32(x, big, small);
+  } else {
+    big = __float_as_uint(x);
+    small = 0u;
+  }
+}
+
+// c += a.b: one tf32 product (exact for 16-bit inputs), or at f32 3xTF32
+// into a fresh accumulator added to c in f32: the tensor cores' own
+// accumulation drifts over a long chain (2.2e-5 from the plain version,
+// past its 1e-5 bound, at dh 1024 and s 64 when c took every product)
+template <bool SPLIT>
+__device__ __forceinline__ void mma_any(float (&c)[4], const uint32_t (&ab)[4], const uint32_t (&as)[4],
+                                        uint32_t bb0, uint32_t bb1, uint32_t bs0, uint32_t bs1) {
+  if constexpr (SPLIT) {
+    float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    mma_3xtf32(t, ab, as, bb0, bb1, bs0, bs1);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) c[i] += t[i];
+  } else {
+    mma_tf32(c, ab, bb0, bb1);
+  }
+}
+
+// The 16-bit or f32 values of a 16-byte vector as floats.
+template <typename T>
+__device__ __forceinline__ void unpack16(const uint4& x, float* f) {
+  const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if constexpr (std::is_same<T, float>::value) {
+      f[i] = __uint_as_float(w[i]);
+    } else if constexpr (std::is_same<T, __half>::value) {
+      f[2 * i] = __half2float(__ushort_as_half(static_cast<unsigned short>(w[i] & 0xffffu)));
+      f[2 * i + 1] = __half2float(__ushort_as_half(static_cast<unsigned short>(w[i] >> 16)));
+    } else {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+}
+
+// Rows r0 .. r0 + ROWS - 1 and columns c0 .. c0 + C - 1 of one of the
+// head's q, k, v (`src` at its column 0) into dst [ROWS][C + 4] as f32;
+// rows past s and columns past dh are zeros. V = 1: element by element,
+// since a head of any width may start anywhere on the 2-byte grid; eight
+// loads a thread are in flight before their stores (a store to shared
+// memory between two loads would wait for the first). V > 1: 16-byte
+// vectors of V elements, where dh is a multiple of V (head widths past
+// 256 that are multiples of 8, or of 4 at f32), so every vector is whole
+// inside the head or past it.
+template <typename T, int C, int ROWS, int V>
+__device__ __forceinline__ void load_chunk(float* dst, const T* __restrict__ src, size_t row_stride,
+                                           int r0, int s, int c0, int dh) {
+  constexpr int LD = C + 4;
+  if constexpr (V == 1) {
+    constexpr int PER = ROWS * C / kF32Threads;  // elements a thread
+    constexpr int BATCH = PER < 8 ? PER : 8;
+    static_assert(PER * kF32Threads == ROWS * C && PER % BATCH == 0, "whole batches a thread");
+#pragma unroll 1
+    for (int u0 = 0; u0 < PER; u0 += BATCH) {
+      float x[BATCH];
+#pragma unroll
+      for (int u = 0; u < BATCH; ++u) {
+        const int i = threadIdx.x + (u0 + u) * kF32Threads;
+        const int r = i / C;
+        const int c = i - r * C;
+        x[u] = r0 + r < s && c0 + c < dh ? to_f32(src[size_t(r0 + r) * row_stride + c0 + c]) : 0.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < BATCH; ++u) {
+        const int i = threadIdx.x + (u0 + u) * kF32Threads;
+        dst[(i / C) * LD + i % C] = x[u];
+      }
+    }
+  } else {
+    static_assert(V * sizeof(T) == 16, "16-byte vectors");
+    constexpr int VPR = C / V;                    // vectors a row
+    constexpr int PER = ROWS * VPR / kF32Threads;  // vectors a thread
+    static_assert(PER * kF32Threads == ROWS * VPR, "whole vectors a thread");
+    uint4 x[PER];
+#pragma unroll
+    for (int u = 0; u < PER; ++u) {
+      const int i = threadIdx.x + u * kF32Threads;
+      const int r = i / VPR;
+      const int c = (i - r * VPR) * V;
+      x[u] = r0 + r < s && c0 + c < dh
+                 ? *reinterpret_cast<const uint4*>(src + size_t(r0 + r) * row_stride + c0 + c)
+                 : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int u = 0; u < PER; ++u) {
+      const int i = threadIdx.x + u * kF32Threads;
+      const int r = i / VPR;
+      const int c = (i - r * VPR) * V;
+      float f[V];
+      unpack16<T>(x[u], f);
+#pragma unroll
+      for (int q = 0; q < V; q += 4) {
+        *reinterpret_cast<float4*>(dst + r * LD + c + q) = make_float4(f[q], f[q + 1], f[q + 2], f[q + 3]);
+      }
+    }
+  }
+}
+
+// two blocks an SM at least: 128 registers a thread
+template <typename T, int C, int V>
+__global__ void __launch_bounds__(kF32Threads, 2)
+    any_width_kernel(const T* __restrict__ qkv, const int32_t* __restrict__ mask, T* __restrict__ out,
+                     int s, int d, int n_heads, int dh, int n_qb, float scale_log2) {
+  using A = AnyWidth<C>;
+  constexpr int BK = kAnyBK;
+  constexpr int LD = A::LD;
+  constexpr int NT = A::NT;
+  constexpr int NN = A::NN;
+  constexpr bool SPLIT = std::is_same<T, float>::value;
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* q_s = reinterpret_cast<float*>(smem);  // [kBQ][LD]
+  float* k_s = q_s + kBQ * LD;                  // [BK][LD]
+  float* v_s = k_s + BK * LD;                   // [BK][LD]
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2;  // row of the fragment (and row + 8)
+  const int t4 = lane & 3;  // column pair of the fragment
+  const int qb = blockIdx.x % n_qb;
+  const int bh = blockIdx.x / n_qb;
+  const int bi = bh / n_heads;
+  const int hi = bh - bi * n_heads;
+  const int q0 = qb * kBQ;
+  const size_t row_stride = size_t(3) * d;
+  const T* q_g = qkv + size_t(bi) * s * row_stride + size_t(hi) * dh;
+  const T* k_g = q_g + d;
+  const T* v_g = q_g + 2 * size_t(d);
+  const int32_t* mrow = mask + size_t(bi) * s;
+  const int n_kt = (s + BK - 1) / BK;
+  const int n_ch = (dh + C - 1) / C;
+  // a warp whose 16 query rows all lie past s loads and waits with the
+  // block but computes nothing
+  const bool active = q0 + warp * 16 < s;
+  const float* q_w = q_s + warp * 16 * LD;
+
+  // a head of one chunk keeps its q in shared memory for the whole block
+  if (n_ch == 1) load_chunk<T, C, kBQ, V>(q_s, q_g, row_stride, q0, s, 0, dh);
+
+  // scores of the warp's rows g and g + 8 against key tile kt, summed over
+  // the head's column chunks, scaled into the log2 domain with the key
+  // bias (0, -1e30 for padding, -inf past s); with vc >= 0 the tile's v
+  // columns of chunk vc land in v_s too
+  auto scores = [&](float (&sc)[NT][4], int kt, int vc) {
+#pragma unroll
+    for (int n = 0; n < NT; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.0f;
+    for (int ch = 0; ch < n_ch; ++ch) {
+      __syncthreads();  // every warp is done with the tiles this overwrites
+      if (n_ch > 1) load_chunk<T, C, kBQ, V>(q_s, q_g, row_stride, q0, s, ch * C, dh);
+      load_chunk<T, C, BK, V>(k_s, k_g, row_stride, kt * BK, s, ch * C, dh);
+      if (ch == 0 && vc >= 0) load_chunk<T, C, BK, V>(v_s, v_g, row_stride, kt * BK, s, vc * C, dh);
+      __syncthreads();
+      if (active) {
+#pragma unroll
+        for (int ks = 0; ks < C / 8; ++ks) {
+          // A (16 x 8): (g, t4), (g + 8, t4), (g, t4 + 4), (g + 8, t4 + 4)
+          const float* qp = q_w + g * LD + 8 * ks + t4;
+          uint32_t ab[4], as[4];
+          tf32_operand<SPLIT>(qp[0], ab[0], as[0]);
+          tf32_operand<SPLIT>(qp[8 * LD], ab[1], as[1]);
+          tf32_operand<SPLIT>(qp[4], ab[2], as[2]);
+          tf32_operand<SPLIT>(qp[8 * LD + 4], ab[3], as[3]);
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+            // B (k = column, n = key): (t4, g), (t4 + 4, g)
+            const float* kp = k_s + (8 * n + g) * LD + 8 * ks + t4;
+            uint32_t bb0, bs0, bb1, bs1;
+            tf32_operand<SPLIT>(kp[0], bb0, bs0);
+            tf32_operand<SPLIT>(kp[4], bb1, bs1);
+            mma_any<SPLIT>(sc[n], ab, as, bb0, bb1, bs0, bs1);
+          }
+        }
+      }
+    }
+    if (active) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const int j = kt * BK + 8 * n + 2 * t4;
+        const float b0 = j < s ? (mrow[j] == 0 ? -1e30f : 0.0f) : -CUDART_INF_F;
+        const float b1 = j + 1 < s ? (mrow[j + 1] == 0 ? -1e30f : 0.0f) : -CUDART_INF_F;
+        sc[n][0] = fmaf(sc[n][0], scale_log2, b0);
+        sc[n][1] = fmaf(sc[n][1], scale_log2, b1);
+        sc[n][2] = fmaf(sc[n][2], scale_log2, b0);
+        sc[n][3] = fmaf(sc[n][3], scale_log2, b1);
+      }
+    }
+  };
+
+  // pass 1: each row's max and sum, online over the key tiles; key 0 < s
+  // lies in the first tile with a finite score, so the max is finite from
+  // there on and the first rescale is exp2(-inf) = 0
+  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, l0 = 0.0f, l1 = 0.0f;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    float sc[NT][4];
+    scores(sc, kt, -1);
+    if (active) {
+      float mx0 = m0, mx1 = m1;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        mx0 = fmaxf(mx0, fmaxf(sc[n][0], sc[n][1]));
+        mx1 = fmaxf(mx1, fmaxf(sc[n][2], sc[n][3]));
+      }
+#pragma unroll
+      for (int x = 1; x <= 2; x <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, x));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, x));
+      }
+      l0 *= exp2_approx(m0 - mx0);
+      l1 *= exp2_approx(m1 - mx1);
+      m0 = mx0;
+      m1 = mx1;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        l0 += exp2_approx(sc[n][0] - m0) + exp2_approx(sc[n][1] - m0);
+        l1 += exp2_approx(sc[n][2] - m1) + exp2_approx(sc[n][3] - m1);
+      }
+    }
+  }
+#pragma unroll
+  for (int x = 1; x <= 2; x <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, x);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, x);
+  }
+  const float inv0 = 1.0f / l0, inv1 = 1.0f / l1;
+
+  // pass 2, one column chunk of ctx at a time: the scores again, the
+  // normalised probabilities rounded to T (the TPU kernel's rounding
+  // point), and p.v with f32 sums
+  T* out_h = out + size_t(bi) * s * d + size_t(hi) * dh;
+  const int r0 = q0 + warp * 16 + g;
+  for (int vc = 0; vc < n_ch; ++vc) {
+    float o[NN][4];
+#pragma unroll
+    for (int c = 0; c < NN; ++c) o[c][0] = o[c][1] = o[c][2] = o[c][3] = 0.0f;
+    for (int kt = 0; kt < n_kt; ++kt) {
+      float sc[NT][4];
+      scores(sc, kt, vc);
+      if (active) {
+        // the 8 keys of n-tile n as one k-step, permuted: k-index t4 is
+        // key 8n + 2t4, k-index t4 + 4 is key 8n + 2t4 + 1
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const float p0 = to_f32(from_f32<T>(exp2_approx(sc[n][0] - m0) * inv0));
+          const float p1 = to_f32(from_f32<T>(exp2_approx(sc[n][1] - m0) * inv0));
+          const float p2 = to_f32(from_f32<T>(exp2_approx(sc[n][2] - m1) * inv1));
+          const float p3 = to_f32(from_f32<T>(exp2_approx(sc[n][3] - m1) * inv1));
+          uint32_t ab[4], as[4];
+          tf32_operand<SPLIT>(p0, ab[0], as[0]);  // (g, key 2t4)
+          tf32_operand<SPLIT>(p2, ab[1], as[1]);  // (g + 8, key 2t4)
+          tf32_operand<SPLIT>(p1, ab[2], as[2]);  // (g, key 2t4 + 1)
+          tf32_operand<SPLIT>(p3, ab[3], as[3]);  // (g + 8, key 2t4 + 1)
+          const float* vp = v_s + (8 * n + 2 * t4) * LD + g;
+#pragma unroll
+          for (int c = 0; c < NN; ++c) {
+            // B (k = key, n = column): (key 2t4, 8c + g), (key 2t4 + 1, 8c + g)
+            uint32_t bb0, bs0, bb1, bs1;
+            tf32_operand<SPLIT>(vp[8 * c], bb0, bs0);
+            tf32_operand<SPLIT>(vp[LD + 8 * c], bb1, bs1);
+            mma_any<SPLIT>(o[c], ab, as, bb0, bb1, bs0, bs1);
+          }
+        }
+      }
+    }
+    if (active) {
+      // ctx in T, element by element; rows past s and columns past dh are
+      // never written
+#pragma unroll
+      for (int c = 0; c < NN; ++c) {
+        const int col = vc * C + 8 * c + 2 * t4;
+        if (r0 < s && col < dh) out_h[size_t(r0) * d + col] = from_f32<T>(o[c][0]);
+        if (r0 < s && col + 1 < dh) out_h[size_t(r0) * d + col + 1] = from_f32<T>(o[c][1]);
+        if (r0 + 8 < s && col < dh) out_h[size_t(r0 + 8) * d + col] = from_f32<T>(o[c][2]);
+        if (r0 + 8 < s && col + 1 < dh) out_h[size_t(r0 + 8) * d + col + 1] = from_f32<T>(o[c][3]);
+      }
+    }
+  }
+}
+
+template <typename T, int C, int V>
+int launch_any_width(const void* qkv, const void* mask, void* out, int b, int s, int d, int n_heads,
+                     float scale, cudaStream_t stream) {
+  using A = AnyWidth<C>;
+  const int n_qb = (s + kBQ - 1) / kBQ;
+  const long long blocks = static_cast<long long>(b) * n_heads * n_qb;
+  if (blocks >= (1ll << 31)) return int(cudaErrorInvalidConfiguration);
+  if (A::smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(any_width_kernel<T, C, V>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               int(A::smem));
+    if (e != cudaSuccess) return int(e);
+  }
+  any_width_kernel<T, C, V><<<unsigned(blocks), kF32Threads, A::smem, stream>>>(
+      static_cast<const T*>(qkv), static_cast<const int32_t*>(mask), static_cast<T*>(out), s, d,
+      n_heads, d / n_heads, n_qb, scale * kLog2e);
+  return int(cudaGetLastError());
+}
+
+// the column chunk: the least of 16 and 32 that holds the head, else 64,
+// read in 16-byte vectors where the head width is a multiple of theirs
+template <typename T>
+int launch_any_width_dh(const void* qkv, const void* mask, void* out, int b, int s, int d,
+                        int n_heads, float scale, cudaStream_t stream) {
+  constexpr int VEC = 16 / sizeof(T);
+  const int dh = d / n_heads;
+  if (dh <= 16) return launch_any_width<T, 16, 1>(qkv, mask, out, b, s, d, n_heads, scale, stream);
+  if (dh <= 32) return launch_any_width<T, 32, 1>(qkv, mask, out, b, s, d, n_heads, scale, stream);
+  if (dh % VEC == 0) return launch_any_width<T, 64, VEC>(qkv, mask, out, b, s, d, n_heads, scale, stream);
+  return launch_any_width<T, 64, 1>(qkv, mask, out, b, s, d, n_heads, scale, stream);
+}
+
 }  // namespace
 
 extern "C" {
 
 // qkv [b, s, 3d] and mask [b, s] int32, both contiguous, qkv 16-byte
 // aligned; out [b, s, d] in qkv's dtype (0 bf16, 1 f16, 2 f32). s >= 1,
-// d / n_heads a multiple of 8 up to 256, and b * n_heads * ceil(s / 128)
-// < 2^31 (the Python wrapper checks all of it). bf16 at head_dim 32 or 64
-// and s <= 128 takes the short kernel, other bf16 and f16 the wgmma
-// kernel, f32 the 3xTF32 kernel. Returns the cudaGetLastError() code of
+// any head width d / n_heads, and b * n_heads * ceil(s / 128) < 2^31 (the
+// Python wrapper checks all of it). A head width that is not a multiple
+// of 8, or past 256, takes the any-width kernel; otherwise bf16 at
+// head_dim 32 or 64 and s <= 128 takes the short kernel, other bf16 and
+// f16 the wgmma kernel, f32 the 3xTF32 kernel. Returns the cudaGetLastError() code of
 // the launch (0 on success), or kNoEncoder / kTensorMapError + CUresult
 // where the CUDA driver gives no tensor map.
 int pw_fused_qkv_attention(const void* qkv, const void* mask, void* out, int dtype, int b,
                            int s, int d, int n_heads, float scale, void* stream) {
   if (b < 1 || s < 1 || n_heads < 1 || d % n_heads != 0) return int(cudaErrorInvalidValue);
   const int dh = d / n_heads;
-  if (dh % 8 != 0 || dh > 256) return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dh % 8 != 0 || dh > 256) {
+    if (dtype == 0) return launch_any_width_dh<__nv_bfloat16>(qkv, mask, out, b, s, d, n_heads, scale, st);
+    if (dtype == 1) return launch_any_width_dh<__half>(qkv, mask, out, b, s, d, n_heads, scale, st);
+    if (dtype == 2) return launch_any_width_dh<float>(qkv, mask, out, b, s, d, n_heads, scale, st);
+    return int(cudaErrorInvalidValue);
+  }
   if (dtype == 0 && s <= kMaxSeq && (dh == 32 || dh == 64)) {
     if (static_cast<long long>(b) * n_heads >= (1ll << 31)) {
       return int(cudaErrorInvalidConfiguration);

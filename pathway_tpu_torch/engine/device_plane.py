@@ -155,6 +155,12 @@ class DeviceProgram:
     def total_shapes(self) -> int:
         return sum(self.shape_counts.values())
 
+    @property
+    def total_compiles(self) -> int:
+        """The reference's name for :attr:`total_shapes` (each distinct
+        shape is one XLA compilation there)."""
+        return self.total_shapes
+
 
 class WaveCoalescer:
     """Coalesces concurrently in-flight requests into one padded dispatch.
@@ -263,6 +269,12 @@ class SlotPool:
         self.joined_inflight = 0
         self.high_water = 0
         self._ever_used: set[int] = set()
+
+    @property
+    def active(self) -> int:
+        """Slots held by requests now."""
+        with self._lock:
+            return self.n_slots - len(self._free)
 
     def acquire(self) -> int | None:
         """Take a free slot (None when the pool is exhausted — the caller
@@ -391,6 +403,10 @@ class DevicePlane:
             for bucket, n in items:
                 out[(name, bucket)] = n
         return out
+
+    def compile_counts(self) -> dict[tuple[str, Any], int]:
+        """The reference's name for :meth:`shape_counts`."""
+        return self.shape_counts()
 
     def coalescer(
         self, flush_fn: Callable[[list], list], max_batch: int = 4096,

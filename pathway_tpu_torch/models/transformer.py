@@ -8,9 +8,8 @@ Every projection multiplies in ``cfg.dtype`` with f32 sums and rounds
 once, as the JAX package's einsums with ``preferred_element_type=float32``
 do. The encoder's attention is ``ops.attention.fused_qkv_attention``: the
 CUDA kernel on the card, the plain version on the CPU. The kernel takes
-every encoder the plain route takes at the widths the JAX package runs
-(bf16, f16 or f32; any sequence length; head_dim a multiple of 8 up to
-256); a config with ``fused_attention=False`` runs
+every encoder the plain route takes (bf16, f16 or f32; any sequence
+length; any head_dim); a config with ``fused_attention=False`` runs
 ``reference_attention`` on any device, as the JAX package's does off the
 TPU. The decoder's
 causal and cached attention is plain PyTorch (:func:`_attend`), as the
@@ -83,8 +82,8 @@ class TransformerConfig:
     embed_dim: int | None = None  # projection head dim (None = d_model)
     # The encoder's attention: True launches the fused kernel
     # (csrc/attention.cu) on the card, which takes bf16, f16 and f32, any
-    # s and head_dim a multiple of 8 up to 256, and raises outside them;
-    # False runs the plain `reference_attention` on any device.
+    # s and any head_dim, and raises on another dtype; False runs the
+    # plain `reference_attention` on any device.
     fused_attention: bool = True
     # Sequence parallelism: the name of the mesh axis the sequence is
     # sharded over. When set, forward/encode run inside spmd.shard_map on

@@ -9,6 +9,11 @@ from pathway_tpu_torch.ops.distances import (
     l2_distances,
     normalize,
 )
+from pathway_tpu_torch.ops.ivf import (
+    IvfPqArrays,
+    build_ivf_pq,
+    ivf_pq_search,
+)
 from pathway_tpu_torch.ops.segment import segment_reduce
 from pathway_tpu_torch.ops.topk import (
     QuantizedDocs,
@@ -23,11 +28,14 @@ from pathway_tpu_torch.ops.topk import (
 )
 
 __all__ = [
+    "IvfPqArrays",
     "QuantizedDocs",
     "TopKResult",
+    "build_ivf_pq",
     "cosine_distances",
     "dot_products",
     "fused_qkv_attention",
+    "ivf_pq_search",
     "knn_search",
     "knn_search_masked",
     "knn_search_quantized",

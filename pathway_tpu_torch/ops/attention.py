@@ -9,15 +9,18 @@ large batch, a RAG ingest of 500-token chunks at s 256 and 512.
 ``pathway_tpu_torch/csrc/attention.cu`` on a CUDA tensor. It replaces the
 TPU kernel ``pathway_tpu/ops/attention.py:_attn_kernel`` over that
 kernel's whole contract (qkv in bf16, f16 or f32, its probabilities
-rounded to qkv's dtype; any s; every head width that is a multiple of 8
-up to 256) and keeps its device-memory contract: qkv is read once, ctx
-written once, and no [b, h, s, s] tensor reaches device memory. Three
-kernels sit behind the one entry point: a short kernel that holds a
-whole row of keys (bf16, head_dim 32 or 64, s <= 128), and for the rest
-two tiled kernels that take 128 queries a block and stream the head's
-keys once in tiles with an online softmax (one exp2 and one q.k^T a
-score): ``wgmma`` products fed by TMA copies for bf16 and f16, and
-3xTF32 ``mma.sync`` products for f32. The tiled kernels round the
+rounded to qkv's dtype; any s; any head width) and keeps its
+device-memory contract: qkv is read once, ctx written once, and no
+[b, h, s, s] tensor reaches device memory. Four kernels sit behind the
+one entry point: a short kernel that holds a whole row of keys (bf16,
+head_dim 32 or 64, s <= 128); for the other head widths that are
+multiples of 8 up to 256, two tiled kernels that take 128 queries a
+block and stream the head's keys once in tiles with an online softmax
+(one exp2 and one q.k^T a score): ``wgmma`` products fed by TMA copies
+for bf16 and f16, and 3xTF32 ``mma.sync`` products for f32; and for
+every other head width (dh 12, dh 320) an any-width kernel that reads
+the head element by element in column chunks and takes the softmax in
+two passes, as the TPU kernel's arithmetic. The tiled kernels round the
 probabilities to qkv's dtype relative to the running max, before the
 division by the row sum, where the TPU kernel rounds the normalised
 probabilities; the two agree to the order of one flipped rounding
@@ -43,7 +46,6 @@ import torch
 from pathway_tpu_torch.ops import _build
 
 KERNEL = "fused_qkv_attention"
-MAX_HEAD_DIM = 256  # csrc/attention.cu's widest instantiation
 # qkv dtypes the kernel takes, by the code its C entry point reads
 _DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 _BLOCK_QUERIES = 128  # queries a work item (a block) of the tiled kernels
@@ -77,8 +79,8 @@ def fused_qkv_attention(
     in qkv's dtype.
 
     A CUDA tensor launches the kernel: qkv bf16, f16 or f32, contiguous
-    and 16-byte aligned, any s >= 1, head_dim a multiple of 8 up to 256;
-    anything else raises. A CPU tensor runs :func:`reference_attention`.
+    and 16-byte aligned, any s >= 1, any head_dim; anything else raises.
+    A CPU tensor runs :func:`reference_attention`.
     """
     if qkv.device.type == "cpu":
         return reference_attention(qkv, token_mask, n_heads)
@@ -99,13 +101,6 @@ def fused_qkv_attention(
         raise ValueError("the attention kernel takes a contiguous qkv")
     if qkv.data_ptr() % 16 != 0:
         raise ValueError("the attention kernel needs a 16-byte aligned qkv")
-    if dh % 8 != 0 or dh > MAX_HEAD_DIM:
-        # a head offset off the 16-byte grid of the fused layout, or wider
-        # than any instantiation (ROADMAP §B)
-        raise ValueError(
-            f"the attention kernel takes a head_dim that is a multiple of 8 up to "
-            f"{MAX_HEAD_DIM}, got {dh}{_PLAIN_ROUTE}"
-        )
     if b < 1 or s < 1:
         raise ValueError(f"the attention kernel takes b >= 1 and s >= 1, got b={b}, s={s}")
     if b * n_heads * -(-s // _BLOCK_QUERIES) >= 2**31:

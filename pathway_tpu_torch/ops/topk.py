@@ -36,9 +36,12 @@ def knn_search(
     metric: str = "cos",
     *,
     normalized: bool = False,
+    approx: bool = False,
 ) -> TopKResult:
     """Exact k-NN: distance grid + top-k. `normalized=True` promises
-    unit-norm doc rows for cosine (the serving layout)."""
+    unit-norm doc rows for cosine (the serving layout). `approx=True`,
+    which the JAX package serves with `approx_max_k`, is served exactly
+    here (`torch.topk`), so its recall is 1, at least the reference's."""
     if metric in ("cos", "cosine", "dot"):
         # similarity form: top-k on the product, convert only the winners
         q = normalize(queries.float()) if metric != "dot" else queries

@@ -187,11 +187,24 @@ class ContinuousBatcher:
                 self._thread.start()
         return fut
 
+    def queue_depth(self) -> int:
+        """Requests queued plus requests holding a slot."""
+        with self._lock:
+            return len(self._queue) + len(self._active)
+
     def drain(self, timeout: float | None = 30.0) -> None:
         """Block until the in-flight work finishes (tests, teardown)."""
         t = self._thread
-        if t is not None:
+        # a finalizer may run close() on the decode thread itself
+        if t is not None and t is not threading.current_thread():
             t.join(timeout)
+
+    def close(self) -> None:
+        """Release the batcher's plane registrations (programs, slot pool,
+        cache lease), after draining the in-flight work. The owner's
+        finalizer calls it."""
+        self.drain()
+        self._plane.drop_namespace(self.name)
 
     # ---------------------------------------------------------- decode loop
 

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import functools
 import weakref
-from typing import Any
+from typing import TYPE_CHECKING, Any
 
 import torch
 
@@ -33,6 +33,9 @@ from pathway_tpu_torch.models.transformer import (
     lm_config,
 )
 from pathway_tpu_torch.xpacks.llm.embedders import pad_left_rows
+
+if TYPE_CHECKING:
+    from pathway_tpu_torch.serving.continuous_batching import ContinuousBatcher
 
 
 def _prep_message_log(messages: Any, verbose: bool) -> str:
@@ -275,8 +278,7 @@ class TorchLMChat(BaseChat):
         # the plane is process-wide: without this, every dead chat would
         # pin its programs and KV caches for the life of the process
         self._finalizer = weakref.finalize(
-            self, _release_chat_programs, self._plane, self._gen.name,
-            self._cb.name if self._cb is not None else None,
+            self, _release_chat_programs, self._plane, self._gen.name, self._cb,
         )
 
     @torch.no_grad()
@@ -316,9 +318,11 @@ class TorchLMChat(BaseChat):
         return await self._batcher.submit(prompt)
 
 
-def _release_chat_programs(plane: DevicePlane, gen_name: str, cb_name: str | None) -> None:
+def _release_chat_programs(
+    plane: DevicePlane, gen_name: str, cb: ContinuousBatcher | None
+) -> None:
     """Finalizer body for TorchLMChat: module-level, so the weakref holds
     no bound method that refers back to the instance."""
     plane.drop_program(gen_name)
-    if cb_name is not None:
-        plane.drop_namespace(cb_name)
+    if cb is not None:
+        cb.close()

@@ -518,3 +518,47 @@ def test_swap_mid_commit_crash_rolls_forward(tmp_path):
         assert not os.path.isdir(blue + ".green")
         seen[pkg] = (r.returncode, _names(blue), sorted(os.listdir(os.path.dirname(blue))))
     assert seen["pathway_tpu_torch"] == seen["pathway_tpu"]
+
+
+# ------------------------- chip_smoke's elastic_rescale and bluegreen_swap
+
+REHEARSAL_EMBEDDER = dict(vocab_size=512, d_model=32, n_heads=2, n_layers=2, d_ff=64, max_len=32,
+                          embed_dim=32, dtype="float32")
+
+
+@requires_elastic
+def test_elastic_rescale_phase_rehearses_on_the_cpu(tmp_path):
+    """chip_smoke's `elastic_rescale` at a small size on the CPU: the
+    spawn_embed pipeline over 96 documents under the supervisor, grown
+    from 2 to 3 processes after process 0's first delivery; one
+    rebalance, 3 members, and the table of spawn -n 1 and -n 2 (the phase
+    raises otherwise), each generation delivering a share."""
+    import chip_smoke
+
+    texts = chip_smoke.load_texts(chip_smoke.ROOT)[:40]
+    chip_smoke.run_spawn_embed("cpu", REHEARSAL_EMBEDDER, texts, n_docs=96, shards=4, processes=(1, 2),
+                               workdir=tmp_path)
+    static = {n: chip_smoke.read_spawn_output(tmp_path / f"n{n}") for n in (1, 2)}
+    res = chip_smoke.run_elastic_rescale("cpu", REHEARSAL_EMBEDDER, texts, n_docs=96, shards=4,
+                                         workdir=tmp_path, static=static, embed_atol=1e-5, timeout_s=120)
+    assert (res["rebalances"], res["members"], res["delivered"], res["duplicates"]) == (1, 3, 96, 0)
+    assert res["equal_static"] == {1: True, 2: True}
+    assert sum(g["chunks"] for g in res["by_members"].values()) == 96
+    assert tmb.load_membership(str(tmp_path / "elastic" / "pstate"))["n"] == 3
+
+
+def test_bluegreen_swap_phase_rehearses_on_the_cpu(tmp_path):
+    """chip_smoke's `bluegreen_swap` at a small size on the CPU: blue
+    persisted by the embedding pipeline, the green swapped in a third
+    into 10 clients' 3 s against the gateway; the swap commits with the
+    offset and the outbox watermark advanced and the baseline output, and
+    every request answers (the phase raises otherwise)."""
+    import chip_smoke
+
+    texts = chip_smoke.load_texts(chip_smoke.ROOT)[:300]
+    res = chip_smoke.run_bluegreen_swap("cpu", {k: v for k, v in REHEARSAL_EMBEDDER.items() if k != "dtype"},
+                                        texts, workdir=tmp_path, clients=10, seconds=3.0)
+    assert res["committed"] and res["green_equals_baseline"]
+    assert res["offsets"] == {"blue": 40, "after": 80}
+    assert res["ok_during_swap"] > 0 and res["errors"] == res["timeouts"] == 0
+    assert res["mismatches"] == res["crossed"] == 0

@@ -70,7 +70,9 @@ def test_build_key_covers_source_and_flags():
 # and 256; then the edges of their 128-query work items and 128-key tiles
 # at dh 64 (s 127, 128, 255, 257; bf16 takes the short kernel at s <= 128,
 # f16 and f32 the tiled ones), a ragged s at dh 256 (64-key tiles) and at
-# dh 96 (three 32-column sub-tiles)
+# dh 96 (three 32-column sub-tiles); then the any-width kernel: head_dim
+# 1, 4, 12, 20 (off the multiples of 8: heads at 2-byte offsets), 264 and
+# 320 (past 256: several 64-column chunks), at ragged s and odd batches
 CARD_SHAPES = [
     (64, 64, 384, 6), (32, 128, 256, 8), (8, 16, 64, 2),
     (5, 16, 192, 3), (7, 32, 128, 2), (16, 128, 384, 6),
@@ -80,6 +82,7 @@ CARD_SHAPES = [
     (8, 100, 16, 2), (8, 100, 96, 1), (8, 200, 256, 2), (4, 300, 512, 2),
     (4, 127, 512, 8), (4, 128, 512, 8), (4, 255, 512, 8), (4, 257, 512, 8),
     (4, 77, 512, 2), (4, 131, 768, 8),
+    (5, 20, 2, 2), (5, 33, 8, 2), (6, 77, 36, 3), (4, 130, 40, 2), (3, 70, 264, 1), (2, 200, 640, 2),
 ]
 # every dtype the kernel takes, and its bound against the plain version:
 # one bf16 ulp at |ctx| < 4 for the 16-bit types (a flipped rounding), the
@@ -124,7 +127,9 @@ def test_kernel_matches_plain_on_card_in_f16_and_f32(cuda_device, b, s, d, h, dt
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["bf16", "f16", "f32"])
-@pytest.mark.parametrize("b,s,d,h", [(8, 100, 384, 6), (8, 300, 512, 8), (4, 512, 512, 8), (4, 200, 512, 2)])
+@pytest.mark.parametrize(
+    "b,s,d,h", [(8, 100, 384, 6), (8, 300, 512, 8), (4, 512, 512, 8), (4, 200, 512, 2), (4, 200, 36, 3)]
+)
 def test_kernel_matches_plain_on_card_with_suffix_masks(cuda_device, b, s, d, h, dtype):
     """Masks that hold each row's last keys: rows start with padding, a
     whole first key tile of it at s 300 and 512 (the tiled kernels'
@@ -153,31 +158,31 @@ def test_kernel_all_padding_batch_has_no_nan(cuda_device, s, d, h):
 
 @pytest.mark.cuda
 def test_kernel_wrapper_rejects_what_it_cannot_take(cuda_device):
-    """What the kernel does not take raises, naming the plain route: a
-    head_dim past 256 or off the multiples of 8, a dtype other than bf16,
-    f16 and f32, a strided qkv, a mask on another device. dh 96, f32 and
-    s 256, which raised before the tiled kernel, are served (the matches
-    above)."""
+    """What the kernel does not take raises, naming the plain route where
+    there is one: a dtype other than bf16, f16 and f32, a strided qkv, a
+    base pointer off the 16-byte grid, a mask on another device. dh 96,
+    f32 and s 256, which raised before the tiled kernel, and dh 12 and
+    264, which raised before the any-width kernel, are served (the
+    matches above at their widths)."""
     mask = torch.ones(2, 16, dtype=torch.int32, device=cuda_device)
     wide = torch.zeros(2, 16, 3 * 264, device=cuda_device, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head_dim .* up to 256, got 264.*fused_attention=False"):
-        tattn.fused_qkv_attention(wide, mask, 1)
     odd = torch.zeros(2, 16, 3 * 36, device=cuda_device, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="multiple of 8.*got 12"):
-        tattn.fused_qkv_attention(odd, mask, 3)
     qkv = torch.zeros(2, 16, 3 * 96, device=cuda_device, dtype=torch.bfloat16)
-    with pytest.raises(TypeError, match="bf16, f16 or f32"):
+    with pytest.raises(TypeError, match="bf16, f16 or f32.*fused_attention=False"):
         tattn.fused_qkv_attention(qkv.double(), mask, 3)
     with pytest.raises(ValueError, match="contiguous"):
         tattn.fused_qkv_attention(qkv.transpose(0, 1), mask.t(), 3)
+    shifted = torch.zeros(qkv.numel() + 1, device=cuda_device, dtype=torch.bfloat16)[1:].view(qkv.shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tattn.fused_qkv_attention(shifted, mask, 3)
     with pytest.raises(ValueError, match="token_mask"):
         tattn.fused_qkv_attention(qkv, mask.cpu(), 3)
     with pytest.raises(ValueError, match="unsupported device"):
         tattn.fused_qkv_attention(qkv.to("meta"), mask.to("meta"), 3)
     long = torch.zeros(1, 256, 3 * 64, device=cuda_device, dtype=torch.float16)
     _build.reset_launch_counts()
-    for served, heads in ((qkv, 1), (qkv.float(), 3), (long, 2)):
+    for served, heads in ((qkv, 1), (qkv.float(), 3), (long, 2), (wide, 1), (odd, 3)):
         out = tattn.fused_qkv_attention(served, torch.ones(served.shape[:2], device=cuda_device), heads)
         assert out.dtype == served.dtype
     torch.cuda.synchronize()
-    assert _build.LAUNCHES[tattn.KERNEL] == 3
+    assert _build.LAUNCHES[tattn.KERNEL] == 5

@@ -6,10 +6,11 @@ here: ``tests/test_torch_kernels.py`` holds it against the plain version
 on a card and ``chip_smoke.py`` does so at the main path's shapes. Here
 the plain version, the kernel's yardstick, is held to the JAX reference
 and to the Pallas kernel in interpret mode over the kernel's whole
-contract: every dtype (f32, bf16, f16), sequences past 128 and every head
-width the CUDA kernel instantiates.
+contract: every dtype (f32, bf16, f16), sequences past 128 and head
+widths from 1 to 320, those of the any-width kernel among them.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -28,12 +29,16 @@ def _bf16_np(x: np.ndarray) -> np.ndarray:
     return torch.from_numpy(x).bfloat16().float().numpy()
 
 
-def _qkv_case(seed: int, b: int, s: int, d: int):
+def _qkv_case(seed: int, b: int, s: int, d: int, suffix: bool = False):
+    """Unit-normal qkv and random lengths: each row's first `len` keys
+    valid, or with `suffix` its last `len` (rows that start with
+    padding)."""
     rng = np.random.default_rng(seed)
     qkv = rng.normal(size=(b, s, 3 * d)).astype(np.float32)
     lens = rng.integers(1, s + 1, b)
     lens[0] = 0  # one row whose keys are all padding (bucket padding makes these)
-    mask = (np.arange(s)[None, :] < lens[:, None]).astype(np.int32)
+    pos = np.arange(s)[None, :]
+    mask = ((pos >= s - lens[:, None]) if suffix else (pos < lens[:, None])).astype(np.int32)
     return qkv, mask
 
 
@@ -54,7 +59,10 @@ LONG_SHAPES = [
     (2, 129, 64, 2), (2, 256, 128, 2), (2, 512, 64, 1),
     (4, 40, 16, 2), (4, 40, 32, 2), (2, 64, 96, 1), (2, 64, 256, 2), (2, 40, 256, 1),
 ]
-ATTENTION_SHAPES += LONG_SHAPES
+# the any-width kernel's: head_dim 1, 4, 12, 20 (off the multiples of 8)
+# and 264, 320 (past 256), with suffix masks (rows start with padding)
+ODD_SHAPES = [(4, 20, 2, 2), (3, 33, 8, 2), (2, 77, 36, 3), (2, 130, 40, 2), (2, 70, 264, 1), (2, 40, 640, 2)]
+ATTENTION_SHAPES += LONG_SHAPES + ODD_SHAPES
 
 
 @pytest.mark.parametrize("b,s,d,h", ATTENTION_SHAPES)
@@ -62,7 +70,7 @@ def test_reference_attention_f32_matches_jax(b, s, d, h):
     """f32: the port's plain attention equals JAX's reference and the
     Pallas kernel in interpret mode to atol 1e-5 (f32 sums in another
     order)."""
-    qkv, mask = _qkv_case(0, b, s, d)
+    qkv, mask = _qkv_case(0, b, s, d, suffix=(b, s, d, h) in ODD_SHAPES)
     port = tattn.reference_attention(torch.from_numpy(qkv), torch.from_numpy(mask), h)
     ref = jattn.reference_attention(jnp.asarray(qkv), jnp.asarray(mask), h)
     pallas = jattn.fused_qkv_attention(
@@ -97,14 +105,14 @@ LOW_DTYPES = {"bf16": (torch.bfloat16, jnp.bfloat16), "f16": (torch.float16, jnp
 
 
 @pytest.mark.parametrize("dtype", ["bf16", "f16"])
-@pytest.mark.parametrize("b,s,d,h", LONG_SHAPES + [(8, 32, 64, 2), (2, 100, 64, 2)])
+@pytest.mark.parametrize("b,s,d,h", LONG_SHAPES + [(8, 32, 64, 2), (2, 100, 64, 2)] + ODD_SHAPES)
 def test_low_precision_attention_matches_the_pallas_kernel(b, s, d, h, dtype):
     """bf16 and f16, as the CUDA kernel takes them: the port's plain
     attention against the JAX reference and the Pallas kernel in interpret
     mode, all three rounding the probabilities and ctx to qkv's dtype; one
     bf16 ulp at |ctx| < 4 (2**-6) for a flipped rounding."""
     tdt, jdt = LOW_DTYPES[dtype]
-    qkv, mask = _qkv_case(3, b, s, d)
+    qkv, mask = _qkv_case(3, b, s, d, suffix=(b, s, d, h) in ODD_SHAPES)
     qkv = torch.from_numpy(qkv).to(tdt).float().numpy()
     port = tattn.reference_attention(torch.from_numpy(qkv).to(tdt), torch.from_numpy(mask), h)
     ref = jattn.reference_attention(jnp.asarray(qkv, jdt), jnp.asarray(mask), h)
@@ -132,6 +140,30 @@ def test_all_padding_row_is_uniform_mean_of_v(s, d, h):
     assert torch.isfinite(out).all()
     v_mean = qkv[0, :, 2 * d:].mean(axis=0)
     np.testing.assert_allclose(out[0].numpy(), np.broadcast_to(v_mean, (s, d)), atol=1e-5)
+
+
+@pytest.mark.parametrize("d_model,n_heads", [(36, 3), (640, 2)])
+def test_encoder_at_head_widths_of_the_any_width_kernel_matches_jax(d_model, n_heads):
+    """Encoders whose heads only the any-width kernel takes on the card
+    (dh 12 and dh 320), the JAX package's weights carried across: f32
+    embeddings within 1e-4 of the JAX package's."""
+    from pathway_tpu.models import transformer as jtfm
+    from pathway_tpu_torch.models import convert
+    from pathway_tpu_torch.models import transformer as ttfm
+
+    kw = dict(vocab_size=256, d_model=d_model, n_heads=n_heads, n_layers=2, d_ff=2 * d_model, max_len=32)
+    jcfg = jtfm.TransformerConfig(dtype=jnp.float32, **kw)
+    tcfg = ttfm.TransformerConfig(dtype=torch.float32, **kw)
+    assert tcfg.head_dim in (12, 320) and tcfg.fused_attention
+    jp = jtfm.init_params(jax.random.PRNGKey(0), jcfg)
+    tp = convert.params_from_numpy(jax.tree.map(np.asarray, jp), tcfg, device="cpu")
+    rng = np.random.default_rng(4)
+    ids = rng.integers(2, 256, (4, 32)).astype(np.int32)
+    mask = (np.arange(32)[None, :] < np.array([32, 20, 7, 1])[:, None]).astype(np.int32)
+    ref = np.asarray(jtfm.encode(jp, jnp.asarray(ids), jnp.asarray(mask), jcfg))
+    got = ttfm.encode(tp, torch.from_numpy(ids).long(), torch.from_numpy(mask), tcfg).numpy()
+    assert got.shape == ref.shape == (4, d_model)
+    np.testing.assert_allclose(got, ref, atol=1e-4)
 
 
 # ------------------------------------------------------------- distances

@@ -474,3 +474,36 @@ def test_http_read_breaker_opens_under_streaming_failures():
     finally:
         run_mod.stop_current_run()
         run_thread.join(timeout=15)
+
+
+# -------------------------------------- chip_smoke's gateway_overload
+
+
+REHEARSAL_EMBEDDER = dict(vocab_size=512, d_model=32, n_heads=2, n_layers=2, d_ff=64, max_len=32, embed_dim=32)
+
+
+def test_gateway_overload_phase_rehearses_on_the_cpu():
+    """chip_smoke's `gateway_overload` at a small size on the CPU: the
+    loadgen's closed-loop clients against the retrieval server behind the
+    gateway, then under a 20 ms straggler with and without it. Every
+    answer equals a direct slab query of its own text, every refusal is a
+    429 with Retry-After (the phase raises otherwise); under the straggler
+    the gateway sheds and holds its queue, and without it every client
+    piles up."""
+    import chip_smoke
+
+    texts = chip_smoke.load_texts(chip_smoke.ROOT)[:300]
+    rungs = (
+        ("clients_20", 20, 1.0, 8, 0.0),
+        ("clients_200", 200, 1.0, 32, 0.0),
+        ("straggler_gateway", 20, 1.0, 4, 20.0),
+        ("straggler_no_gateway", 20, 1.0, None, 20.0),
+    )
+    res = chip_smoke.run_gateway_overload("cpu", REHEARSAL_EMBEDDER, texts, rungs=rungs)
+    r = res["rungs"]
+    assert res["answers_checked"] == sum(x["ok"] for x in r.values()) > 0
+    assert res["mismatches"] == res["crossed"] == 0
+    assert r["clients_200"]["max_pending"] <= 32
+    assert r["straggler_gateway"]["shed_429"] > 0 and r["straggler_gateway"]["max_pending"] <= 4
+    assert r["straggler_no_gateway"]["max_pending"] == 20 and r["straggler_no_gateway"]["shed_429"] == 0
+    assert all(x["errors"] == x["timeouts"] == x["pending_after"] == 0 for x in r.values())

@@ -212,7 +212,7 @@ def test_mesh_spanning_slot_pool_byte_identical():
             futs = [cb.submit(p) for p in prompts]
             return [f.result(timeout=120) for f in futs], cb.n_slots
         finally:
-            cb.drain()
+            cb.close()
 
     def port(span, name):
         return ContinuousBatcher(params=tparams, cfg=tcfg, tokenizer=_Tok(), n_steps=3, n_slots=2,
