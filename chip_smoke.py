@@ -137,8 +137,22 @@ ATTENTION_SHAPES = [
 # 64 or more padding keys, so that a first key tile of padding only must
 # be wiped by the rescale; then the any-width kernel: head_dim 1, 4, 12,
 # 20, 36, 100 (off the multiples of 8: heads at 2-byte offsets) and 264,
-# 320, 512, 1024 (past 256: several 64-column chunks), in bf16, f16 and
-# f32, s from 1 to 600, suffix masks, batches that fill no tile evenly
+# 320, 512, 1024 (past 256: 1024 in four passes of 320 ctx columns), in
+# bf16, f16 and f32, s from 1 to 600, suffix masks, batches that fill no
+# tile evenly; then the edges of its branches: s 128 (the last that one
+# pass holds in registers) and 129 at dh 12, 20 and 36, in all three
+# dtypes; s 256 (the last whose scores a block holds in shared memory) and
+# 257 at dh 320; head counts that its narrow blocks' 4 (dh 12) or 2 (dh
+# 20) heads do not divide, the second with qkv rows of 600 bytes (not a
+# multiple of 16); and past s 256 the wide heads' steps: dh 480 and 488
+# (two key-tile stages beside 128 queries at 16 bits, then one), 640 and
+# 648 (128 queries, then 64), and at f32 288 and 296, 352 and 360 (the
+# same two steps); dh 2192 and 2200 at 16 bits, 1648 and 1656 at f32 (the
+# widest heads whose q stays whole beside a key tile, then q.k^T in column
+# chunks of q and k). At s 300 all of these take the one pass with the
+# scores in shared memory for s <= 512 (64 queries a block, a row's keys
+# over two warps); past s 512 the two passes, whose steps they are, take
+# them: so a few again at s 600, and s 512 and 513 at dh 320
 ATTENTION_CHECK_SHAPES = [
     ("s16_dh64", 4097, 16, 384, 6, "bf16"),
     ("s32_dh64", 4097, 32, 384, 6, "bf16"),
@@ -180,6 +194,42 @@ ATTENTION_CHECK_SHAPES = [
     ("dh512_s100", 17, 100, 1024, 2, "bf16"),
     ("dh1024_s64_f32", 7, 64, 2048, 2, "f32"),
     ("dh1024_s300_suffix", 5, 300, 1024, 1, "bf16", "suffix"),
+    ("dh12_s128_f16", 2048, 128, 384, 32, "f16"),
+    ("dh12_s129", 1024, 129, 384, 32, "bf16"),
+    ("dh12_s128_f32_suffix", 512, 128, 384, 32, "f32", "suffix"),
+    ("dh12_s129_f16_suffix", 512, 129, 384, 32, "f16", "suffix"),
+    ("dh20_s128", 1024, 128, 640, 32, "bf16"),
+    ("dh20_s129_f16", 512, 129, 640, 32, "f16"),
+    ("dh20_s128_f32", 512, 128, 640, 32, "f32"),
+    ("dh20_s129_f32_suffix", 256, 129, 640, 32, "f32", "suffix"),
+    ("dh36_s128_f32", 256, 128, 72, 2, "f32"),
+    ("dh36_s129_f16", 256, 129, 72, 2, "f16"),
+    ("dh320_s257", 16, 257, 1280, 4, "bf16"),
+    ("dh320_s256_f32_suffix", 16, 256, 640, 2, "f32", "suffix"),
+    ("dh12_h6", 1024, 100, 72, 6, "bf16"),
+    ("dh20_h5_row600", 1024, 77, 100, 5, "bf16"),
+    ("dh20_h5_row600_s300_f16", 256, 300, 100, 5, "f16"),
+    ("dh480", 16, 300, 480, 1, "bf16"),
+    ("dh488_f16", 16, 300, 488, 1, "f16"),
+    ("dh640", 16, 300, 640, 1, "bf16"),
+    ("dh648_f16_suffix", 8, 300, 1296, 2, "f16", "suffix"),
+    ("dh288_f32", 16, 300, 288, 1, "f32"),
+    ("dh296_f32", 16, 300, 296, 1, "f32"),
+    ("dh352_f32", 16, 300, 352, 1, "f32"),
+    ("dh360_f32_suffix", 16, 300, 720, 2, "f32", "suffix"),
+    ("dh2192", 4, 300, 2192, 1, "bf16"),
+    ("dh2200_f16_suffix", 4, 300, 2200, 1, "f16", "suffix"),
+    ("dh1648_f32", 4, 300, 1648, 1, "f32"),
+    ("dh1656_f32_suffix", 4, 300, 1656, 1, "f32", "suffix"),
+    ("dh320_s512", 16, 512, 1280, 4, "bf16"),
+    ("dh320_s513_f16_suffix", 16, 513, 1280, 4, "f16", "suffix"),
+    ("dh320_s512_f32", 8, 512, 640, 2, "f32"),
+    ("dh488_s600", 16, 600, 488, 1, "bf16"),
+    ("dh648_s600_f16_suffix", 8, 600, 1296, 2, "f16", "suffix"),
+    ("dh296_s600_f32", 16, 600, 296, 1, "f32"),
+    ("dh360_s600_f32_suffix", 16, 600, 720, 2, "f32", "suffix"),
+    ("dh2200_s600", 4, 600, 2200, 1, "bf16"),
+    ("dh1656_s600_f32", 4, 600, 1656, 1, "f32"),
 ]
 # every shape is checked on this many seeded inputs, the first one timed
 ATTENTION_SEEDS = 3
@@ -333,7 +383,7 @@ def ptxas_report(log: str) -> dict:
             end = ln.index("_kernelI") + len("_kernel")
             base = next(ln[end - n:end] for n in range(len("_kernel"), end)
                         if ln[end - n - len(str(n)):end - n] == str(n))
-            args = re.findall(r"13__nv_bfloat16|6__half|(?<=I)f(?=L)|(?<=Li)\d+(?=E)", ln[end:].split("EEv")[0] + "E")
+            args = re.findall(r"13__nv_bfloat16|6__half|(?<=I)f(?=[LE])|(?<=Li)\d+(?=E)", ln[end:].split("EEv")[0] + "E")
             name = f"{base}<{', '.join(short.get(a, a) for a in args)}>"
         elif "Potential Performance Loss" in ln or "is injected" in ln:
             advisories.append(ln.split("ptxas info    : ")[-1][:240])

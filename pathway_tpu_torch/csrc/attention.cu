@@ -24,8 +24,8 @@
 // the tensor cores, so bytes up to s ~ 64); and b*h*s*s exponentials, which
 // the SFU takes at 16 a clock an SM (on an H100 SXM at its 700 W limit and
 // 1980 MHz boost clock, 0.51 ms for the 2.1e9 exp2 of b 1024, s 512, h 8,
-// beside 0.64 ms for that shape's bytes at 3.35 TB/s). Four kernels share
-// the entry point.
+// beside 0.64 ms for that shape's bytes at 3.35 TB/s). Four kernel
+// families share the entry point.
 //
 // (1) The short kernel: bf16, head_dim 32 or 64, s <= 128 (the sequence
 // buckets of the flagship and default embedders).
@@ -162,26 +162,52 @@
 //   copied once a head read no faster); at s 128, dh 128, the bytes.
 //
 // (4) Any head width: every dh that is not a multiple of 8 (dh 12 has
-// heads at byte 24 of a row) or is past 256, in bf16, f16 and f32. A
-// simple kernel that is right at every width; PERF.md has its times.
-// - Layout: the f32 kernel's, 8 warps of 16 query rows, 128 queries a
-//   block, key tiles of 64. q, k and v come in element by element (any
-//   2-byte offset), or in 16-byte vectors where dh is a multiple of
-//   theirs (8 at 16 bits, 4 at f32: dh 264, 320, 512), converted to f32
-//   into shared memory, in column chunks of C = 16, 32 or 64 (the least
-//   that holds the head, else 64), zero past dh and past s. A head of one
-//   chunk keeps q for the whole block.
-// - Products: m16n8k8 tf32 `mma.sync` with the f32 kernel's fragments. A
-//   bf16 or f16 value is exact in tf32, so one product is exact and sums
-//   in f32, as a 16-bit `mma` would; f32 takes 3xTF32.
-// - Two passes over the keys, as the TPU kernel's arithmetic: the first
-//   keeps each row's running max and sum (scores summed over the chunks);
-//   the second, one C-column chunk of ctx at a time (its accumulator in
-//   registers, so no width runs out of them or of shared memory), takes
-//   the scores again, rounds the normalised probabilities to T and adds
-//   p.v. The scores are taken 1 + ceil(dh / C) times: at dh <= 64 twice.
-// - Store: ctx element by element in T; rows past s and columns past dh
-//   are never written.
+// heads at byte 24 of a row) or is past 256, in bf16, f16 and f32, at the
+// Pallas kernel's rounding point: scores in f32, the exact row max and sum
+// before normalising, the normalised probabilities rounded to T before
+// p.v, a row of padding averaging its s keys of v.
+// - Products: m16n8k16 bf16/f16 `mma.sync` with f32 sums, fragments by
+//   `ldmatrix` (q and k as they lie, v transposed); the probabilities,
+//   rounded to T, are exact operands. f32 takes 3xTF32 m16n8k8 with a
+//   fresh accumulator a k-step (the tensor cores' own sums drifted past
+//   1e-5 at dh 1024), fragments by 32-bit loads.
+// - Copies: `cp.async` of the largest of 16, 8 and 4 bytes that divides
+//   a head row (dh * sizeof(T)), so each lands whole inside one head in a
+//   padded [head][row][column] layout (rows an odd number of 16-byte
+//   chunks at 16 bits, 4 mod 8 floats at f32: the 8 rows of an `ldmatrix`
+//   hit 8 bank groups); an odd dh at 16 bits goes element by element.
+//   Columns past dh are zeroed once, rows past s arrive as zeros, keys
+//   past s get a bias of -inf.
+// - One pass with the scores in registers (any_width_one_kernel): s <=
+//   128 and dh <= 128. Warp w holds rows 16w .. 16w + 15 against all keys
+//   (64 floats a thread): one exp2 a score. Narrow heads share a block,
+//   2 at dh <= 16, as the Pallas kernel's head loop does; a persistent
+//   grid walks the items (batch row, heads) and, where two buffers fit,
+//   copies the next item while this one's products run.
+// - One pass with the scores in shared memory (any_width_shared_kernel):
+//   s <= 512 and a wider head (dh > 128, or dh > 32 past s 128); 128
+//   queries a block at s <= 256, 64 past it. Warp w holds its 16 rows'
+//   scores against 256 keys (128 floats a thread; past s 256 a row's keys
+//   are split over two warps, which exchange their partial max and sum
+//   through shared memory), summed over column chunks of q and k streamed
+//   once (128 columns, 64 past s 256; half that at f32); the rounded
+//   probabilities go to shared memory, and p.v runs with its own warp
+//   tiles (32 rows x 160 columns, 80 past s 256) over v streamed once a
+//   320-column chunk of ctx. q, k and v are read once a block at any
+//   width; ctx leaves through shared memory in 16-byte copies.
+// - Two passes (any_width_kernel), past those lengths: the first takes
+//   each row's max and sum online over key tiles, the second the scores
+//   again, the normalised probabilities and p.v. kTwoPass for narrow
+//   heads past s 128 (4 a block at dh <= 16, 2 at dh <= 32); kWide for
+//   the rest past s 512: q held whole for 128 queries a block (fewer where
+//   the head is wide, 16 at the least: up to dh 2192 at 16 bits, 1648 at
+//   f32), key tiles double-buffered where they fit; a wider head takes
+//   q.k^T in 256-column chunks (128 at f32) of q and k together, q read
+//   again with every key tile. ctx in 320-column passes: a warp's ctx of
+//   16 rows is 160 floats a thread at 320 columns, so past dh 320 the
+//   scores are taken 1 + ceil(dh / 320) times.
+// - What limits it: PERF.md has its times beside the bound and
+//   scripts/attention_variants.py's ablations.
 //
 // Built by pathway_tpu_torch/ops/_build.py with nvcc into a shared library
 // with a plain C interface, called through ctypes from
@@ -1345,30 +1371,68 @@ int launch_wgmma_dh(const void* qkv, const void* mask, void* out, int b, int s, 
   return launch_wgmma<T, 256>(qkv, mask, out, b, s, d, n_heads, scale, stream);
 }
 
-// ------------------------------ (4) any head width: chunked, two passes
+// --------------------------- (4) any head width: one pass, or two
 
-constexpr int kAnyBK = 64;  // keys a tile
+constexpr int kAwThreads = 256;   // 8 warps of 16 query rows
+constexpr int kAwBQ = 128;        // queries a block (fewer only where a wide q does not fit)
+constexpr int kAwSP = 128;        // keys the one-pass mode holds: s <= 128
+constexpr int kAwChunk = 320;     // ctx columns a pass of the wide mode
+constexpr size_t kSmemMax = 232448;  // a block's shared memory on the H100
 
-template <int C>
-struct AnyWidth {
-  static constexpr int LD = C + 4;       // row stride in floats: one spare 16-byte chunk
-  static constexpr int NT = kAnyBK / 8;  // n-tiles of a warp's score tile
-  static constexpr int NN = C / 8;       // n-tiles of a warp's ctx chunk
-  // q [kBQ][LD], then k and v [kAnyBK][LD], all f32
-  static constexpr size_t smem = size_t(kBQ + 2 * kAnyBK) * LD * 4;
-  static_assert(C == 16 || C == 32 || C == 64, "a column chunk of 16, 32 or 64");
+// The two-pass modes, past the one-pass lengths: kTwoPass for narrow
+// heads (the column width DC 16 or 32, 4 or 2 heads a block), kWide for
+// the rest (ctx in chunks of kAwChunk columns; q.k^T in chunks of KC
+// columns where q does not stay whole).
+enum AwMode { kTwoPass = 0, kWide = 1 };
+
+template <typename T, int DC, int MODE>
+struct Aw {
+  static constexpr bool F32 = std::is_same<T, float>::value;
+  // elements a shared-memory row holds past its columns: an odd number of
+  // 16-byte chunks a row at 16 bits (the 8 rows of an `ldmatrix` hit 8
+  // bank groups), a row stride of 4 mod 8 floats at f32 (the fragment
+  // reads of a warp hit 32 banks)
+  static constexpr int PAD = F32 ? 4 : 8;
+  static constexpr int HPB = MODE == kWide ? 1 : DC <= 16 ? 4 : 2;  // heads a block
+  static constexpr int BK = MODE == kWide ? (F32 ? 16 : 32) : (F32 ? 32 : 64);  // keys a tile
+  static constexpr int NT = BK / 8;    // n-tiles of a warp's score tile
+  static constexpr int NN = DC / 8;    // n-tiles of a warp's ctx
+  static constexpr int LD = DC + PAD;  // row stride: q, k and v (v only, in kWide)
+  static constexpr int NST = 2;        // key-tile stages (kWide: 1 or 2, by fit)
+  static constexpr int KC = F32 ? 128 : 256;  // kWide's q.k^T columns a stage, where q does not stay whole
+  // kTwoPass's shared memory: q [HPB][128][LD]; a stage is k and v
+  // [HPB][BK][LD] and the key bias [BK] in f32
+  static constexpr size_t stage = size_t(2) * HPB * BK * LD * sizeof(T) + BK * 4;
+  static constexpr size_t smem = size_t(HPB) * kAwBQ * LD * sizeof(T) + NST * stage;
+  static_assert(DC % 16 == 0 && (MODE == kWide || smem <= kSmemMax), "a block's shared memory");
 };
 
-template <typename T>
-__device__ __forceinline__ float to_f32(T x) {
-  if constexpr (std::is_same<T, float>::value) {
-    return x;
-  } else if constexpr (std::is_same<T, __half>::value) {
-    return __half2float(x);
-  } else {
-    return __bfloat162float(x);
-  }
-}
+// The one-pass mode: s <= 128 and dh <= 128. A persistent block walks the
+// work items (batch row, HPB heads) in steps of the grid; every key of an
+// item's heads sits in shared memory with its q and v, and warp w holds
+// the scores of rows 16w .. 16w + 15 against all of them in registers (64
+// floats a thread): the exact max and sum, one exp2 a score. Two buffers
+// where they fit: the next item's copies (one cp.async group) land while
+// this one's products run. One block barrier an item.
+template <typename T, int DC>
+struct AwOne {
+  static constexpr bool F32 = std::is_same<T, float>::value;
+  static constexpr int PAD = F32 ? 4 : 8;
+  static constexpr int HPB = DC <= 16 ? 2 : 1;  // heads an item
+  static constexpr int NT = kAwSP / 8;
+  static constexpr int NN = DC / 8;
+  static constexpr int LD = DC + PAD;
+  static constexpr size_t head = size_t(kAwSP) * LD * sizeof(T);  // one head's q, k or v
+  // a buffer: q, k and v of the item's heads, then the key bias [128] in f32
+  static constexpr size_t buf = 3 * HPB * head + kAwSP * 4;
+  // two blocks an SM at the narrow widths in 16 bits: 128 registers a
+  // thread (f32 spills there)
+  static constexpr int MINB = DC <= 32 && !F32 ? 2 : 1;
+  // two buffers where they fit: the copies run one item ahead
+  static constexpr int NBUF = 2 * buf <= kSmemMax ? 2 : 1;
+  static constexpr size_t smem = NBUF * buf;
+  static_assert(DC % 16 == 0 && DC <= 128, "a column width of 16 to 128");
+};
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x) {
@@ -1381,327 +1445,1165 @@ __device__ __forceinline__ T from_f32(float x) {
   }
 }
 
-// x as a tf32 operand of `mma.sync`: a value that came from bf16 or f16 is
-// exact in tf32 (8 exponent bits, 10 mantissa bits: the low 13 bits of its
-// f32 pattern are zero) and goes as it is; an f32 value splits in two
-template <bool SPLIT>
-__device__ __forceinline__ void tf32_operand(float x, uint32_t& big, uint32_t& small) {
-  if constexpr (SPLIT) {
-    split_tf32(x, big, small);
-  } else {
-    big = __float_as_uint(x);
-    small = 0u;
-  }
+__device__ __forceinline__ void cp_async_8(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
 }
 
-// c += a.b: one tf32 product (exact for 16-bit inputs), or at f32 3xTF32
-// into a fresh accumulator added to c in f32: the tensor cores' own
-// accumulation drifts over a long chain (2.2e-5 from the plain version,
-// past its 1e-5 bound, at dh 1024 and s 64 when c took every product)
-template <bool SPLIT>
-__device__ __forceinline__ void mma_any(float (&c)[4], const uint32_t (&ab)[4], const uint32_t (&as)[4],
-                                        uint32_t bb0, uint32_t bb1, uint32_t bs0, uint32_t bs1) {
-  if constexpr (SPLIT) {
-    float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    mma_3xtf32(t, ab, as, bb0, bb1, bs0, bs1);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) c[i] += t[i];
-  } else {
-    mma_tf32(c, ab, bb0, bb1);
-  }
-}
-
-// The 16-bit or f32 values of a 16-byte vector as floats.
+// c += a.b, m16n8k16 with f32 sums, in bf16 or f16
 template <typename T>
-__device__ __forceinline__ void unpack16(const uint4& x, float* f) {
-  const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+__device__ __forceinline__ void mma16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  if constexpr (std::is_same<T, __half>::value) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  } else {
+    mma_bf16(c, a, b0, b1);
+  }
+}
+
+// An f32 A fragment split for 3xTF32
+struct SplitA {
+  uint32_t big[4], small[4];
+  __device__ __forceinline__ SplitA(float a0, float a1, float a2, float a3) {
+    split_tf32(a0, big[0], small[0]);
+    split_tf32(a1, big[1], small[1]);
+    split_tf32(a2, big[2], small[2]);
+    split_tf32(a3, big[3], small[3]);
+  }
+};
+
+// c += a.b at f32: 3xTF32 into a fresh accumulator added to c in f32; the
+// tensor cores' own accumulation drifts over a long chain (2.2e-5 from the
+// plain version, past its 1e-5 bound, at dh 1024 and s 64 when c took
+// every product)
+__device__ __forceinline__ void mma_f32(float (&c)[4], const SplitA& a, float b0, float b1) {
+  uint32_t bb0, bs0, bb1, bs1;
+  split_tf32(b0, bb0, bs0);
+  split_tf32(b1, bb1, bs1);
+  float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  mma_3xtf32(t, a.big, a.small, bb0, bb1, bs0, bs1);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if constexpr (std::is_same<T, float>::value) {
-      f[i] = __uint_as_float(w[i]);
-    } else if constexpr (std::is_same<T, __half>::value) {
-      f[2 * i] = __half2float(__ushort_as_half(static_cast<unsigned short>(w[i] & 0xffffu)));
-      f[2 * i + 1] = __half2float(__ushort_as_half(static_cast<unsigned short>(w[i] >> 16)));
-    } else {
-      f[2 * i] = __uint_as_float(w[i] << 16);
-      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  for (int i = 0; i < 4; ++i) c[i] += t[i];
+}
+
+// The largest copy, in bytes, that divides a head's row: heads, their k
+// and v and their rows all start on multiples of it (qkv 16-byte aligned)
+__host__ __device__ constexpr int granule(int head_bytes) {
+  return head_bytes % 16 == 0 ? 16 : head_bytes % 8 == 0 ? 8 : head_bytes % 4 == 0 ? 4 : 2;
+}
+
+// How a warp's lanes cover ncols columns of a head's rows in gran-byte
+// copies (gran: 16, 8 or 4 bytes by cp.async, the largest that divides a
+// head row, so every copy lands whole inside one head; 2, element by
+// element, a head of odd width at 16 bits), worked out once a kernel or a
+// chunk: ng copies a row; where ng < 32 lane takes copy c0 of row rs of
+// each step of 32 / ng rows, else copies c0, c0 + 32, ... of every row, so
+// that neighbouring lanes read neighbouring bytes
+template <typename T>
+struct HeadCopies {
+  int per, ng, rs, rstep, c0;
+  __device__ __forceinline__ HeadCopies(int ncols, int gran) {
+    const int lane = threadIdx.x & 31;
+    per = gran / int(sizeof(T));
+    ng = ncols / per;
+    rstep = ng < 32 ? 32 / ng : 1;
+    rs = ng < 32 ? lane / ng : 0;
+    c0 = ng < 32 ? lane - rs * ng : lane;
+    if (rs >= rstep) c0 = ng;  // an idle lane
+  }
+};
+
+// Rows r0 .. r0 + rows - 1 of one head (src: its first column at row 0)
+// into dst [row][column] (stride ld), rows past s zero-filled, by the
+// block's warps
+template <typename T>
+__device__ __forceinline__ void load_head(T* dst, int ld, int rows, const T* src, size_t row_stride, int r0,
+                                          int s, const HeadCopies<T>& hc, int gran) {
+  const int warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  for (int c = hc.c0 * hc.per; c < hc.ng * hc.per; c += 32 * hc.per) {
+    for (int r = warp * hc.rstep + hc.rs; r < rows; r += nw * hc.rstep) {
+      const bool in = r0 + r < s;
+      const T* gp = in ? src + size_t(r0 + r) * row_stride + c : src;
+      T* sp = dst + size_t(r) * ld + c;
+      if (gran == 16) {
+        cp_async_16(smem_addr(sp), gp, in ? 16 : 0);
+      } else if (gran == 8) {
+        cp_async_8(smem_addr(sp), gp, in ? 8 : 0);
+      } else if (gran == 4) {
+        cp_async_4(smem_addr(sp), gp, in ? 4 : 0);
+      } else {
+        *sp = in ? *gp : from_f32<T>(0.0f);
+      }
     }
   }
 }
 
-// Rows r0 .. r0 + ROWS - 1 and columns c0 .. c0 + C - 1 of one of the
-// head's q, k, v (`src` at its column 0) into dst [ROWS][C + 4] as f32;
-// rows past s and columns past dh are zeros. V = 1: element by element,
-// since a head of any width may start anywhere on the 2-byte grid; eight
-// loads a thread are in flight before their stores (a store to shared
-// memory between two loads would wait for the first). V > 1: 16-byte
-// vectors of V elements, where dh is a multiple of V (head widths past
-// 256 that are multiples of 8, or of 4 at f32), so every vector is whole
-// inside the head or past it.
-template <typename T, int C, int ROWS, int V>
-__device__ __forceinline__ void load_chunk(float* dst, const T* __restrict__ src, size_t row_stride,
-                                           int r0, int s, int c0, int dh) {
-  constexpr int LD = C + 4;
-  if constexpr (V == 1) {
-    constexpr int PER = ROWS * C / kF32Threads;  // elements a thread
-    constexpr int BATCH = PER < 8 ? PER : 8;
-    static_assert(PER * kF32Threads == ROWS * C && PER % BATCH == 0, "whole batches a thread");
+// Columns dh .. dhp - 1 of n rows (stride ld) to zero: q.k^T reads them
+template <typename T>
+__device__ __forceinline__ void zero_cols(T* dst, int n, int ld, int dh, int dhp) {
+  for (int r = threadIdx.x; r < n; r += blockDim.x) {
+    for (int c = dh; c < dhp; ++c) dst[size_t(r) * ld + c] = from_f32<T>(0.0f);
+  }
+}
+
+// The key bias of keys k0 .. k0 + n - 1 in the log2 domain: 0, -1e30 for
+// padding, -inf past s (those keys drop out of the softmax, so a row of
+// padding averages exactly its s keys)
+__device__ __forceinline__ void fill_bias(float* bias, int n, const int32_t* __restrict__ mrow, int k0, int s) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int j = k0 + i;
+    bias[i] = j < s ? (mrow[j] == 0 ? -1e30f : 0.0f) : -CUDART_INF_F;
+  }
+}
+
+// sc += q.k^T for the warp's 16 rows (q_w, row stride ld) against the
+// tile's keys (k_t [key][column]), over columns 0 .. 16 nks - 1; 16-key
+// groups from live16 on are skipped (their keys all lie past s)
+template <typename T, int NT>
+__device__ __forceinline__ void qk_acc(float (&sc)[NT][4], const T* q_w, const T* k_t, int ld, int nks,
+                                       int live16) {
+  const int lane = threadIdx.x & 31;
+  if constexpr (std::is_same<T, float>::value) {
+    const int g = lane >> 2;
+    const int t4 = lane & 3;
+    // rolled: unrolled, the 3xTF32 splits of every k-step spilled
 #pragma unroll 1
-    for (int u0 = 0; u0 < PER; u0 += BATCH) {
-      float x[BATCH];
+    for (int ks = 0; ks < 2 * nks; ++ks) {
+      // A (16 x 8): (g, t4), (g + 8, t4), (g, t4 + 4), (g + 8, t4 + 4)
+      const float* qp = q_w + g * ld + 8 * ks + t4;
+      const SplitA a(qp[0], qp[8 * ld], qp[4], qp[8 * ld + 4]);
 #pragma unroll
-      for (int u = 0; u < BATCH; ++u) {
-        const int i = threadIdx.x + (u0 + u) * kF32Threads;
-        const int r = i / C;
-        const int c = i - r * C;
-        x[u] = r0 + r < s && c0 + c < dh ? to_f32(src[size_t(r0 + r) * row_stride + c0 + c]) : 0.0f;
-      }
-#pragma unroll
-      for (int u = 0; u < BATCH; ++u) {
-        const int i = threadIdx.x + (u0 + u) * kF32Threads;
-        dst[(i / C) * LD + i % C] = x[u];
+      for (int n = 0; n < NT; ++n) {
+        if (n / 2 < live16) {
+          // B (k = column, n = key): (t4, g), (t4 + 4, g)
+          const float* kp = k_t + (8 * n + g) * ld + 8 * ks + t4;
+          mma_f32(sc[n], a, kp[0], kp[4]);
+        }
       }
     }
   } else {
-    static_assert(V * sizeof(T) == 16, "16-byte vectors");
-    constexpr int VPR = C / V;                    // vectors a row
-    constexpr int PER = ROWS * VPR / kF32Threads;  // vectors a thread
-    static_assert(PER * kF32Threads == ROWS * VPR, "whole vectors a thread");
-    uint4 x[PER];
+    // A: matrix (lane >> 3) is rows +0/+8 (bit 0), columns +0/+8 (bit 1);
+    // B: keys +0 (columns +0, +8), keys +8 (columns +0, +8)
+    const uint32_t qa = smem_addr(q_w + (lane & 15) * ld + 8 * (lane >> 4));
+    const uint32_t ka = smem_addr(k_t + ((lane & 7) + 8 * (lane >> 4)) * ld + 8 * ((lane >> 3) & 1));
+    for (int ks = 0; ks < nks; ++ks) {
+      uint32_t a[4];
+      ldmatrix_x4(a, qa + 32 * ks);
 #pragma unroll
-    for (int u = 0; u < PER; ++u) {
-      const int i = threadIdx.x + u * kF32Threads;
-      const int r = i / VPR;
-      const int c = (i - r * VPR) * V;
-      x[u] = r0 + r < s && c0 + c < dh
-                 ? *reinterpret_cast<const uint4*>(src + size_t(r0 + r) * row_stride + c0 + c)
-                 : make_uint4(0u, 0u, 0u, 0u);
-    }
-#pragma unroll
-    for (int u = 0; u < PER; ++u) {
-      const int i = threadIdx.x + u * kF32Threads;
-      const int r = i / VPR;
-      const int c = (i - r * VPR) * V;
-      float f[V];
-      unpack16<T>(x[u], f);
-#pragma unroll
-      for (int q = 0; q < V; q += 4) {
-        *reinterpret_cast<float4*>(dst + r * LD + c + q) = make_float4(f[q], f[q + 1], f[q + 2], f[q + 3]);
+      for (int p = 0; p < NT / 2; ++p) {
+        if (p < live16) {
+          uint32_t kb[4];
+          ldmatrix_x4(kb, ka + 2 * (16 * p * ld) + 32 * ks);
+          mma16<T>(sc[2 * p], a, kb[0], kb[1]);
+          mma16<T>(sc[2 * p + 1], a, kb[2], kb[3]);
+        }
       }
     }
   }
 }
 
-// two blocks an SM at least: 128 registers a thread
-template <typename T, int C, int V>
-__global__ void __launch_bounds__(kF32Threads, 2)
-    any_width_kernel(const T* __restrict__ qkv, const int32_t* __restrict__ mask, T* __restrict__ out,
-                     int s, int d, int n_heads, int dh, int n_qb, float scale_log2) {
-  using A = AnyWidth<C>;
-  constexpr int BK = kAnyBK;
-  constexpr int LD = A::LD;
-  constexpr int NT = A::NT;
-  constexpr int NN = A::NN;
-  constexpr bool SPLIT = std::is_same<T, float>::value;
-
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* q_s = reinterpret_cast<float*>(smem);  // [kBQ][LD]
-  float* k_s = q_s + kBQ * LD;                  // [BK][LD]
-  float* v_s = k_s + BK * LD;                   // [BK][LD]
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;  // row of the fragment (and row + 8)
-  const int t4 = lane & 3;  // column pair of the fragment
-  const int qb = blockIdx.x % n_qb;
-  const int bh = blockIdx.x / n_qb;
-  const int bi = bh / n_heads;
-  const int hi = bh - bi * n_heads;
-  const int q0 = qb * kBQ;
-  const size_t row_stride = size_t(3) * d;
-  const T* q_g = qkv + size_t(bi) * s * row_stride + size_t(hi) * dh;
-  const T* k_g = q_g + d;
-  const T* v_g = q_g + 2 * size_t(d);
-  const int32_t* mrow = mask + size_t(bi) * s;
-  const int n_kt = (s + BK - 1) / BK;
-  const int n_ch = (dh + C - 1) / C;
-  // a warp whose 16 query rows all lie past s loads and waits with the
-  // block but computes nothing
-  const bool active = q0 + warp * 16 < s;
-  const float* q_w = q_s + warp * 16 * LD;
-
-  // a head of one chunk keeps its q in shared memory for the whole block
-  if (n_ch == 1) load_chunk<T, C, kBQ, V>(q_s, q_g, row_stride, q0, s, 0, dh);
-
-  // scores of the warp's rows g and g + 8 against key tile kt, summed over
-  // the head's column chunks, scaled into the log2 domain with the key
-  // bias (0, -1e30 for padding, -inf past s); with vc >= 0 the tile's v
-  // columns of chunk vc land in v_s too
-  auto scores = [&](float (&sc)[NT][4], int kt, int vc) {
+// o += p.v: p the warp's normalised probabilities over the tile's keys
+// (the scores' accumulator layout), rounded to T here, the Pallas kernel's
+// rounding point (at f32 nothing is rounded); v_t [key][column]; 16-key
+// groups from live16 on and 16-column groups from live_c16 on are skipped
+template <typename T, int NT, int NN>
+__device__ __forceinline__ void pv_acc(float (&o)[NN][4], const float (&p)[NT][4], const T* v_t, int ld,
+                                       int live16, int live_c16) {
+  const int lane = threadIdx.x & 31;
+  if constexpr (std::is_same<T, float>::value) {
+    const int g = lane >> 2;
+    const int t4 = lane & 3;
+    // the 8 keys of n-tile n as one k-step, permuted: k-index t4 is key
+    // 8n + 2t4, k-index t4 + 4 is key 8n + 2t4 + 1
 #pragma unroll
-    for (int n = 0; n < NT; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.0f;
-    for (int ch = 0; ch < n_ch; ++ch) {
-      __syncthreads();  // every warp is done with the tiles this overwrites
-      if (n_ch > 1) load_chunk<T, C, kBQ, V>(q_s, q_g, row_stride, q0, s, ch * C, dh);
-      load_chunk<T, C, BK, V>(k_s, k_g, row_stride, kt * BK, s, ch * C, dh);
-      if (ch == 0 && vc >= 0) load_chunk<T, C, BK, V>(v_s, v_g, row_stride, kt * BK, s, vc * C, dh);
-      __syncthreads();
-      if (active) {
+    for (int n = 0; n < NT; ++n) {
+      if (n / 2 < live16) {
+        const SplitA a(p[n][0], p[n][2], p[n][1], p[n][3]);
+        const float* vp = v_t + (8 * n + 2 * t4) * ld + g;
 #pragma unroll
-        for (int ks = 0; ks < C / 8; ++ks) {
-          // A (16 x 8): (g, t4), (g + 8, t4), (g, t4 + 4), (g + 8, t4 + 4)
-          const float* qp = q_w + g * LD + 8 * ks + t4;
-          uint32_t ab[4], as[4];
-          tf32_operand<SPLIT>(qp[0], ab[0], as[0]);
-          tf32_operand<SPLIT>(qp[8 * LD], ab[1], as[1]);
-          tf32_operand<SPLIT>(qp[4], ab[2], as[2]);
-          tf32_operand<SPLIT>(qp[8 * LD + 4], ab[3], as[3]);
+        for (int c = 0; c < NN; ++c) {
+          // B (k = key, n = column): (key 2t4, 8c + g), (key 2t4 + 1, 8c + g)
+          if (c / 2 < live_c16) mma_f32(o[c], a, vp[8 * c], vp[ld + 8 * c]);
+        }
+      }
+    }
+  } else {
+    // a narrow ctx takes the odd key steps into a second accumulator, so
+    // that two chains of products run side by side
+    constexpr bool TWO = NN <= 4;
+    float o2[TWO ? NN : 1][4];
 #pragma unroll
-          for (int n = 0; n < NT; ++n) {
-            // B (k = column, n = key): (t4, g), (t4 + 4, g)
-            const float* kp = k_s + (8 * n + g) * LD + 8 * ks + t4;
-            uint32_t bb0, bs0, bb1, bs1;
-            tf32_operand<SPLIT>(kp[0], bb0, bs0);
-            tf32_operand<SPLIT>(kp[4], bb1, bs1);
-            mma_any<SPLIT>(sc[n], ab, as, bb0, bb1, bs0, bs1);
+    for (int c = 0; c < (TWO ? NN : 1); ++c) o2[c][0] = o2[c][1] = o2[c][2] = o2[c][3] = 0.0f;
+    // transposed matrices: keys +0/+8 (bit 0), columns +0/+8 (bit 1)
+    const uint32_t va = smem_addr(v_t + (lane & 15) * ld + 8 * (lane >> 4));
+#pragma unroll
+    for (int kk = 0; kk < NT / 2; ++kk) {
+      if (kk < live16) {
+        // A of key step kk: n-tiles 2kk (a0, a1) and 2kk + 1 (a2, a3)
+        const uint32_t a[4] = {pack2<T>(p[2 * kk][0], p[2 * kk][1]), pack2<T>(p[2 * kk][2], p[2 * kk][3]),
+                               pack2<T>(p[2 * kk + 1][0], p[2 * kk + 1][1]),
+                               pack2<T>(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+#pragma unroll
+        for (int cc = 0; cc < NN / 2; ++cc) {
+          if (cc < live_c16) {
+            uint32_t vb[4];
+            ldmatrix_x4_trans(vb, va + 2 * (16 * kk * ld + 16 * cc));
+            if (TWO && (kk & 1)) {
+              mma16<T>(o2[2 * cc], a, vb[0], vb[1]);
+              mma16<T>(o2[2 * cc + 1], a, vb[2], vb[3]);
+            } else {
+              mma16<T>(o[2 * cc], a, vb[0], vb[1]);
+              mma16<T>(o[2 * cc + 1], a, vb[2], vb[3]);
+            }
           }
         }
       }
     }
-    if (active) {
+    if constexpr (TWO) {
 #pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const int j = kt * BK + 8 * n + 2 * t4;
-        const float b0 = j < s ? (mrow[j] == 0 ? -1e30f : 0.0f) : -CUDART_INF_F;
-        const float b1 = j + 1 < s ? (mrow[j + 1] == 0 ? -1e30f : 0.0f) : -CUDART_INF_F;
-        sc[n][0] = fmaf(sc[n][0], scale_log2, b0);
-        sc[n][1] = fmaf(sc[n][1], scale_log2, b1);
-        sc[n][2] = fmaf(sc[n][2], scale_log2, b0);
-        sc[n][3] = fmaf(sc[n][3], scale_log2, b1);
-      }
-    }
-  };
-
-  // pass 1: each row's max and sum, online over the key tiles; key 0 < s
-  // lies in the first tile with a finite score, so the max is finite from
-  // there on and the first rescale is exp2(-inf) = 0
-  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, l0 = 0.0f, l1 = 0.0f;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    float sc[NT][4];
-    scores(sc, kt, -1);
-    if (active) {
-      float mx0 = m0, mx1 = m1;
+      for (int c = 0; c < NN; ++c) {
 #pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        mx0 = fmaxf(mx0, fmaxf(sc[n][0], sc[n][1]));
-        mx1 = fmaxf(mx1, fmaxf(sc[n][2], sc[n][3]));
-      }
-#pragma unroll
-      for (int x = 1; x <= 2; x <<= 1) {
-        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, x));
-        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, x));
-      }
-      l0 *= exp2_approx(m0 - mx0);
-      l1 *= exp2_approx(m1 - mx1);
-      m0 = mx0;
-      m1 = mx1;
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        l0 += exp2_approx(sc[n][0] - m0) + exp2_approx(sc[n][1] - m0);
-        l1 += exp2_approx(sc[n][2] - m1) + exp2_approx(sc[n][3] - m1);
+        for (int i = 0; i < 4; ++i) o[c][i] += o2[c][i];
       }
     }
   }
+}
+
+// sc = sc * scale_log2 + bias (the tile's key bias); with MAX, the row
+// maxima of rows g and g + 8 over the tile, across the lane quad
+template <int NT, bool MAX = true>
+__device__ __forceinline__ void scale_bias(float (&sc)[NT][4], const float* bias, float scale_log2,
+                                           float& mx0, float& mx1) {
+  const int t4 = threadIdx.x & 3;
+  // four partial maxima a row: short dependency chains
+  float a0[4], a1[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) a0[i] = a1[i] = -CUDART_INF_F;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const float2 b = *reinterpret_cast<const float2*>(bias + 8 * n + 2 * t4);
+    sc[n][0] = fmaf(sc[n][0], scale_log2, b.x);
+    sc[n][1] = fmaf(sc[n][1], scale_log2, b.y);
+    sc[n][2] = fmaf(sc[n][2], scale_log2, b.x);
+    sc[n][3] = fmaf(sc[n][3], scale_log2, b.y);
+    a0[n & 3] = fmaxf(a0[n & 3], fmaxf(sc[n][0], sc[n][1]));
+    a1[n & 3] = fmaxf(a1[n & 3], fmaxf(sc[n][2], sc[n][3]));
+  }
+  mx0 = fmaxf(fmaxf(a0[0], a0[1]), fmaxf(a0[2], a0[3]));
+  mx1 = fmaxf(fmaxf(a1[0], a1[1]), fmaxf(a1[2], a1[3]));
+  if (MAX) {
+#pragma unroll
+    for (int x = 1; x <= 2; x <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, x));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, x));
+    }
+  }
+}
+
+// sc = exp2(sc - max) for the 16-key groups below live16 (0 past them),
+// and the row sums of rows g and g + 8 across the lane quad
+template <int NT>
+__device__ __forceinline__ void exp_sum(float (&sc)[NT][4], float m0, float m1, int live16, float& l0,
+                                        float& l1) {
+  float s0[4] = {0.0f, 0.0f, 0.0f, 0.0f}, s1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    if (n / 2 < live16) {
+      sc[n][0] = exp2_approx(sc[n][0] - m0);
+      sc[n][1] = exp2_approx(sc[n][1] - m0);
+      sc[n][2] = exp2_approx(sc[n][2] - m1);
+      sc[n][3] = exp2_approx(sc[n][3] - m1);
+      s0[n & 3] += sc[n][0] + sc[n][1];
+      s1[n & 3] += sc[n][2] + sc[n][3];
+    } else {
+      sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.0f;
+    }
+  }
+  l0 = (s0[0] + s0[1]) + (s0[2] + s0[3]);
+  l1 = (s1[0] + s1[1]) + (s1[2] + s1[3]);
 #pragma unroll
   for (int x = 1; x <= 2; x <<= 1) {
     l0 += __shfl_xor_sync(0xffffffffu, l0, x);
     l1 += __shfl_xor_sync(0xffffffffu, l1, x);
   }
-  const float inv0 = 1.0f / l0, inv1 = 1.0f / l1;
+}
 
-  // pass 2, one column chunk of ctx at a time: the scores again, the
-  // normalised probabilities rounded to T (the TPU kernel's rounding
-  // point), and p.v with f32 sums
-  T* out_h = out + size_t(bi) * s * d + size_t(hi) * dh;
-  const int r0 = q0 + warp * 16 + g;
-  for (int vc = 0; vc < n_ch; ++vc) {
-    float o[NN][4];
+// Rows r = w rstep + rs, + nw rstep, ... below `rows` of src (stride ld)
+// out to dst (row stride `stride`) in the plan's gran-byte copies: warp w
+// of nw
+template <typename T>
+__device__ __forceinline__ void copy_rows(T* dst, size_t stride, const T* src, int ld, int rows,
+                                          const HeadCopies<T>& hc, int gran, int w, int nw) {
+  for (int c = hc.c0 * hc.per; c < hc.ng * hc.per; c += 32 * hc.per) {
+    for (int r = w * hc.rstep + hc.rs; r < rows; r += nw * hc.rstep) {
+      const T* sp = src + r * ld + c;
+      T* gp = dst + size_t(r) * stride + c;
+      if (gran == 16) {
+        *reinterpret_cast<uint4*>(gp) = *reinterpret_cast<const uint4*>(sp);
+      } else if (gran == 8) {
+        *reinterpret_cast<uint2*>(gp) = *reinterpret_cast<const uint2*>(sp);
+      } else if (gran == 4) {
+        *reinterpret_cast<uint32_t*>(gp) = *reinterpret_cast<const uint32_t*>(sp);
+      } else {
+        *gp = *sp;
+      }
+    }
+  }
+}
+
+// ctx of 16 rows (a warp's, g and g + 8 of each m-tile) in T into stage
+// (stride ld), columns below dcols
+template <typename T, int NN>
+__device__ __forceinline__ void stage_ctx(const float (&o)[NN][4], T* stage, int ld, int dcols) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
 #pragma unroll
-    for (int c = 0; c < NN; ++c) o[c][0] = o[c][1] = o[c][2] = o[c][3] = 0.0f;
-    for (int kt = 0; kt < n_kt; ++kt) {
-      float sc[NT][4];
-      scores(sc, kt, vc);
-      if (active) {
-        // the 8 keys of n-tile n as one k-step, permuted: k-index t4 is
-        // key 8n + 2t4, k-index t4 + 4 is key 8n + 2t4 + 1
+  for (int n = 0; n < NN; ++n) {
+    if (8 * n < dcols) {
+      T* r0 = stage + g * ld + 8 * n + 2 * t4;
+      if constexpr (std::is_same<T, float>::value) {
+        *reinterpret_cast<float2*>(r0) = make_float2(o[n][0], o[n][1]);
+        *reinterpret_cast<float2*>(r0 + 8 * ld) = make_float2(o[n][2], o[n][3]);
+      } else {
+        *reinterpret_cast<uint32_t*>(r0) = pack2<T>(o[n][0], o[n][1]);
+        *reinterpret_cast<uint32_t*>(r0 + 8 * ld) = pack2<T>(o[n][2], o[n][3]);
+      }
+    }
+  }
+}
+
+// ctx of the warp's 16 rows in T into its own rows of q (stage, stride
+// ld; no other warp reads them), then rows below `rows` out to dst (row
+// stride `stride`) in the plan's copies
+template <typename T, int NN>
+__device__ __forceinline__ void store_ctx(const float (&o)[NN][4], T* stage, int ld, int dcols, T* dst,
+                                          size_t stride, int rows, const HeadCopies<T>& hc, int gran) {
+  __syncwarp();
+  stage_ctx<T, NN>(o, stage, ld, dcols);
+  __syncwarp();
+  copy_rows(dst, stride, stage, ld, min(rows, 16), hc, gran, 0, 1);
+}
+
+// ctx of the warp's 16 rows straight from the registers, for a chunk of
+// columns c0 .. c0 + ncols - 1 of a head that has more (q still holds the
+// head): column pairs where the head width is even, else one at a time
+template <typename T, int NN>
+__device__ __forceinline__ void store_ctx_direct(const float (&o)[NN][4], T* dst, size_t stride, int rows,
+                                                 int ncols, bool pairs) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+#pragma unroll
+  for (int n = 0; n < NN; ++n) {
+    const int col = 8 * n + 2 * t4;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = g + 8 * h;
+      T* gp = dst + size_t(r) * stride + col;
+      if (r < rows && col < ncols) {
+        if (pairs) {
+          if constexpr (std::is_same<T, float>::value) {
+            *reinterpret_cast<float2*>(gp) = make_float2(o[n][2 * h], o[n][2 * h + 1]);
+          } else {
+            *reinterpret_cast<uint32_t*>(gp) = pack2<T>(o[n][2 * h], o[n][2 * h + 1]);
+          }
+        } else {
+          gp[0] = from_f32<T>(o[n][2 * h]);
+          if (col + 1 < ncols) gp[1] = from_f32<T>(o[n][2 * h + 1]);
+        }
+      }
+    }
+  }
+}
+
+// One block: up to HPB heads (head group) of one batch row and a block of
+// bq = 16 * warps queries; warp w owns query rows 16w .. 16w + 15 of each
+// head. Block ((bi * head groups) + group) * n_qb + query block.
+template <typename T, int DC, int MODE>
+__global__ void __launch_bounds__(kAwThreads, 1)
+    any_width_kernel(const T* __restrict__ qkv, const int32_t* __restrict__ mask, T* __restrict__ out, int s,
+                     int d, int n_heads, int dh, int n_qb, int nst_wide, int kc_wide, int gran,
+                     float scale_log2) {
+  using A = Aw<T, DC, MODE>;
+  constexpr int HPB = A::HPB;
+  constexpr int BK = A::BK;
+  constexpr int NT = A::NT;
+  constexpr int NN = A::NN;
+  constexpr int LDV = A::LD;
+  constexpr bool WIDE = MODE == kWide;
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int warp = threadIdx.x >> 5;
+  const int bq = WIDE ? int(blockDim.x >> 1) : kAwBQ;
+  const int nst = WIDE ? nst_wide : A::NST;
+  const int n_hg = (n_heads + HPB - 1) / HPB;
+  const int qb = blockIdx.x % n_qb;
+  const int bh = blockIdx.x / n_qb;
+  const int bi = bh / n_hg;
+  const int h0 = (bh - bi * n_hg) * HPB;
+  const int nh = min(HPB, n_heads - h0);
+  const int q0 = qb * bq;
+  const int row0 = q0 + warp * 16;  // the warp's first query row
+  // a warp whose 16 query rows all lie past s loads and waits with the
+  // block but computes nothing
+  const bool active = row0 < s;
+  // q and k rows hold the head's columns padded to 16 (the kWide head), or
+  // DC; a kWide head too wide for q to stay whole takes q.k^T in chunks
+  // of kc columns, q's with k's in every stage (q read again each key tile)
+  const int dhp = WIDE ? (dh + 15) & ~15 : DC;
+  const int kc = WIDE ? kc_wide : DC;
+  const bool q_whole = kc >= dhp;
+  const int n_ch = q_whole ? 1 : (dhp + kc - 1) / kc;
+  const int ldk = (q_whole ? dhp : kc) + A::PAD;
+  const size_t row_stride = size_t(3) * d;
+  const T* q_g = qkv + size_t(bi) * s * row_stride + size_t(h0) * dh;
+  const T* k_g = q_g + d;
+  const T* v_g = q_g + 2 * size_t(d);
+  const int32_t* mrow = mask + size_t(bi) * s;
+  T* out_w = out + (size_t(bi) * s + row0) * d + size_t(h0) * dh;
+
+  // q [HPB][bq][ldk] where it stays whole; then nst stages of q's chunk
+  // [bq][ldk] (where it does not), k [HPB][BK][ldk], v [HPB][BK][LDV],
+  // bias [BK]
+  T* q_s = reinterpret_cast<T*>(smem);
+  unsigned char* ring = smem + (q_whole ? size_t(HPB) * bq * ldk * sizeof(T) : 0);
+  const size_t qc_bytes = q_whole ? 0 : size_t(bq) * ldk * sizeof(T);
+  const size_t k_bytes = size_t(HPB) * BK * ldk * sizeof(T);
+  const size_t stage_bytes = qc_bytes + k_bytes + size_t(HPB) * BK * LDV * sizeof(T) + BK * 4;
+  auto qc_st = [&](int st) { return reinterpret_cast<T*>(ring + st * stage_bytes); };
+  auto k_st = [&](int st, int j) {
+    return reinterpret_cast<T*>(ring + st * stage_bytes + qc_bytes) + j * BK * ldk;
+  };
+  auto v_st = [&](int st, int j) {
+    return reinterpret_cast<T*>(ring + st * stage_bytes + qc_bytes + k_bytes) + j * BK * LDV;
+  };
+  auto bias_st = [&](int st) { return reinterpret_cast<float*>(ring + (st + 1) * stage_bytes - BK * 4); };
+  // the warp's rows of head j's q, whole or the stage's chunk
+  auto q_w = [&](int j, int st) {
+    return (q_whole ? q_s + j * bq * ldk : qc_st(st)) + warp * 16 * ldk;
+  };
+
+  if (q_whole && dh < dhp) {
+    zero_cols(q_s, HPB * bq, ldk, dh, dhp);
+    for (int st = 0; st < nst; ++st) zero_cols(k_st(st, 0), HPB * BK, ldk, dh, dhp);
+  }
+
+  const HeadCopies<T> hc(dh, gran);
+  if (q_whole) {
+    for (int j = 0; j < nh; ++j) {
+      load_head(q_s + j * bq * ldk, ldk, bq, q_g + j * dh, row_stride, q0, s, hc, gran);
+    }
+  }
+  cp_async_commit();
+  const int n_kt = (s + BK - 1) / BK;
+  const int n_units = n_kt * n_ch;  // (key tile, column chunk of q.k^T)
+  // unit u (key tile u / n_ch, chunk u % n_ch) into stage u % nst as one
+  // cp.async group: k (and where q is not whole, q) at the chunk's
+  // columns; with the tile's last chunk its bias and, with a plan hv, v's
+  // columns from c0
+  auto issue = [&](int u, int c0, const HeadCopies<T>* hv) {
+    const int st = u % nst;
+    const int t = u / n_ch;
+    const int c = u - t * n_ch;
+    if (q_whole) {
+      for (int j = 0; j < nh; ++j) load_head(k_st(st, j), ldk, BK, k_g + j * dh, row_stride, t * BK, s, hc, gran);
+    } else {
+      const int ncols = min(kc, dh - c * kc);
+      if (ncols < kc) {  // the last chunk: zeros past the head, which q.k^T reads
+        zero_cols(qc_st(st), bq, ldk, ncols, kc);
+        zero_cols(k_st(st, 0), BK, ldk, ncols, kc);
+      }
+      const HeadCopies<T> hk(ncols, gran);
+      load_head(qc_st(st), ldk, bq, q_g + c * kc, row_stride, q0, s, hk, gran);
+      load_head(k_st(st, 0), ldk, BK, k_g + c * kc, row_stride, t * BK, s, hk, gran);
+    }
+    if (c == n_ch - 1) {
+      if (hv) {
+        for (int j = 0; j < nh; ++j) {
+          load_head(v_st(st, j), LDV, BK, v_g + j * dh + c0, row_stride, t * BK, s, *hv, gran);
+        }
+      }
+      fill_bias(bias_st(st), BK, mrow, t * BK, s);
+    }
+    cp_async_commit();
+  };
+  // body(chunk, stage) over the units: with two stages the next unit's
+  // copies are in flight while this one's products run
+  auto key_loop = [&](int c0, const HeadCopies<T>* hv, auto&& body) {
+    issue(0, c0, hv);
+    for (int u = 0; u < n_units; ++u) {
+      if (nst > 1 && u + 1 < n_units) {
+        issue(u + 1, c0, hv);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      body(u % n_ch, u % nst);
+      __syncthreads();  // every warp is done with the stage the next copies overwrite
+      if (nst == 1 && u + 1 < n_units) issue(u + 1, c0, hv);
+    }
+  };
+  // the scores of the warp's rows of head j against the unit's keys,
+  // summed over the chunks: zeroed at a tile's first chunk
+  float sc[NT][4];
+  auto scores = [&](int j, int c, int st) {
+    if (c == 0) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.0f;
+    }
+    qk_acc<T, NT>(sc, q_w(j, st), k_st(st, j), ldk, min(kc, dhp - c * kc) / 16, NT / 2);
+  };
+
+  // pass 1: each row's max and sum, online over the key tiles; key 0 < s
+  // lies in the first tile with a finite score, so the max is finite
+  // from there on and the first rescale is exp2(-inf) = 0
+  float m[HPB][2], l[HPB][2];
+#pragma unroll
+  for (int j = 0; j < HPB; ++j) {
+    m[j][0] = m[j][1] = -CUDART_INF_F;
+    l[j][0] = l[j][1] = 0.0f;
+  }
+  key_loop(0, nullptr, [&](int c, int st) {
+    if (!active) return;
+#pragma unroll
+    for (int j = 0; j < HPB; ++j) {
+      if (j < nh) {
+        scores(j, c, st);
+        if (c < n_ch - 1) continue;
+        float mx0, mx1;
+        scale_bias<NT>(sc, bias_st(st), scale_log2, mx0, mx1);
+        mx0 = fmaxf(mx0, m[j][0]);
+        mx1 = fmaxf(mx1, m[j][1]);
+        l[j][0] *= exp2_approx(m[j][0] - mx0);
+        l[j][1] *= exp2_approx(m[j][1] - mx1);
+        m[j][0] = mx0;
+        m[j][1] = mx1;
 #pragma unroll
         for (int n = 0; n < NT; ++n) {
-          const float p0 = to_f32(from_f32<T>(exp2_approx(sc[n][0] - m0) * inv0));
-          const float p1 = to_f32(from_f32<T>(exp2_approx(sc[n][1] - m0) * inv0));
-          const float p2 = to_f32(from_f32<T>(exp2_approx(sc[n][2] - m1) * inv1));
-          const float p3 = to_f32(from_f32<T>(exp2_approx(sc[n][3] - m1) * inv1));
-          uint32_t ab[4], as[4];
-          tf32_operand<SPLIT>(p0, ab[0], as[0]);  // (g, key 2t4)
-          tf32_operand<SPLIT>(p2, ab[1], as[1]);  // (g + 8, key 2t4)
-          tf32_operand<SPLIT>(p1, ab[2], as[2]);  // (g, key 2t4 + 1)
-          tf32_operand<SPLIT>(p3, ab[3], as[3]);  // (g + 8, key 2t4 + 1)
-          const float* vp = v_s + (8 * n + 2 * t4) * LD + g;
+          l[j][0] += exp2_approx(sc[n][0] - mx0) + exp2_approx(sc[n][1] - mx0);
+          l[j][1] += exp2_approx(sc[n][2] - mx1) + exp2_approx(sc[n][3] - mx1);
+        }
+      }
+    }
+  });
 #pragma unroll
-          for (int c = 0; c < NN; ++c) {
-            // B (k = key, n = column): (key 2t4, 8c + g), (key 2t4 + 1, 8c + g)
-            uint32_t bb0, bs0, bb1, bs1;
-            tf32_operand<SPLIT>(vp[8 * c], bb0, bs0);
-            tf32_operand<SPLIT>(vp[LD + 8 * c], bb1, bs1);
-            mma_any<SPLIT>(o[c], ab, as, bb0, bb1, bs0, bs1);
+  for (int j = 0; j < HPB; ++j) {
+#pragma unroll
+    for (int x = 1; x <= 2; x <<= 1) {
+      l[j][0] += __shfl_xor_sync(0xffffffffu, l[j][0], x);
+      l[j][1] += __shfl_xor_sync(0xffffffffu, l[j][1], x);
+    }
+    l[j][0] = 1.0f / l[j][0];
+    l[j][1] = 1.0f / l[j][1];
+  }
+
+  // pass 2: the scores again, the normalised probabilities rounded to T
+  // and p.v over the whole head (kWide: DC columns of ctx a pass)
+  for (int c0 = 0; c0 < dh; c0 += DC) {
+    const int vcols = min(DC, dh - c0);
+    float o[HPB][NN][4];
+#pragma unroll
+    for (int j = 0; j < HPB; ++j) {
+#pragma unroll
+      for (int c = 0; c < NN; ++c) o[j][c][0] = o[j][c][1] = o[j][c][2] = o[j][c][3] = 0.0f;
+    }
+    const int live_c16 = (vcols + 15) >> 4;
+    const HeadCopies<T> hv(vcols, gran);
+    key_loop(c0, &hv, [&](int c, int st) {
+      if (!active) return;
+#pragma unroll
+      for (int j = 0; j < HPB; ++j) {
+        if (j < nh) {
+          scores(j, c, st);
+          if (c < n_ch - 1) continue;
+          float unused0, unused1;
+          scale_bias<NT, false>(sc, bias_st(st), scale_log2, unused0, unused1);
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+            sc[n][0] = exp2_approx(sc[n][0] - m[j][0]) * l[j][0];
+            sc[n][1] = exp2_approx(sc[n][1] - m[j][0]) * l[j][0];
+            sc[n][2] = exp2_approx(sc[n][2] - m[j][1]) * l[j][1];
+            sc[n][3] = exp2_approx(sc[n][3] - m[j][1]) * l[j][1];
+          }
+          pv_acc<T, NT, NN>(o[j], sc, v_st(st, j), LDV, NT / 2, live_c16);
+        }
+      }
+    });
+    if (active) {
+#pragma unroll
+      for (int j = 0; j < HPB; ++j) {
+        if (j < nh) {
+          if (!WIDE || (q_whole && vcols == dh)) {
+            // q is done with: ctx through the warp's own q rows
+            store_ctx<T, NN>(o[j], q_w(j, 0), ldk, dhp, out_w + j * dh, d, s - row0, hc, gran);
+          } else {
+            store_ctx_direct<T, NN>(o[j], out_w + c0, d, s - row0, vcols, dh % 2 == 0);
           }
         }
       }
     }
-    if (active) {
-      // ctx in T, element by element; rows past s and columns past dh are
-      // never written
+  }
+}
+
+// One head of a one-pass item for the warp's 16 rows (q_w, row stride LD)
+// against the item's keys (k and v [128][LD], their bias): the scores,
+// the exact max and sum, one exp2 a score, the normalised probabilities
+// rounded to T, p.v, and ctx out through q_w's rows. LIVE16: the 16-key
+// groups that hold a key < s, where the launch knows it; 0 reads live16.
+template <typename T, int DC, int LIVE16>
+__device__ __forceinline__ void one_head(T* q_w, const T* k, const T* v, const float* bias, int live16,
+                                         float scale_log2, T* out_w, int d, int rows, const HeadCopies<T>& hc,
+                                         int gran) {
+  using A = AwOne<T, DC>;
+  constexpr int NT = A::NT;
+  constexpr int NN = A::NN;
+  const int lv = LIVE16 > 0 ? LIVE16 : live16;
+  float sc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.0f;
+  qk_acc<T, NT>(sc, q_w, k, A::LD, DC / 16, lv);
+  float m0, m1, l0, l1;
+  scale_bias<NT>(sc, bias, scale_log2, m0, m1);
+  exp_sum<NT>(sc, m0, m1, lv, l0, l1);
+  const float inv0 = 1.0f / l0, inv1 = 1.0f / l1;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    sc[n][0] *= inv0;
+    sc[n][1] *= inv0;
+    sc[n][2] *= inv1;
+    sc[n][3] *= inv1;
+  }
+  float o[NN][4];
+#pragma unroll
+  for (int c = 0; c < NN; ++c) o[c][0] = o[c][1] = o[c][2] = o[c][3] = 0.0f;
+  pv_acc<T, NT, NN>(o, sc, v, A::LD, lv, NN / 2);
+  // q is done with: ctx through the warp's own q rows
+  store_ctx<T, NN>(o, q_w, A::LD, DC, out_w, d, rows, hc, gran);
+}
+
+template <typename T, int DC>
+__global__ void __launch_bounds__(kAwThreads, AwOne<T, DC>::MINB)
+    any_width_one_kernel(const T* __restrict__ qkv, const int32_t* __restrict__ mask, T* __restrict__ out, int s,
+                         int d, int n_heads, int dh, int items, int gran, float scale_log2) {
+  using A = AwOne<T, DC>;
+  constexpr int HPB = A::HPB;
+  constexpr int NT = A::NT;
+  constexpr int LD = A::LD;
+  constexpr int NB = A::NBUF;
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int warp = threadIdx.x >> 5;
+  const int row0 = warp * 16;  // the warp's first query row
+  // a warp whose 16 query rows all lie past s loads and waits with the
+  // block but computes nothing
+  const bool active = row0 < s;
+  const int n_hg = (n_heads + HPB - 1) / HPB;
+  const size_t row_stride = size_t(3) * d;
+  const int live16 = (s + 15) >> 4;  // 16-key groups that hold a key < s
+  // buffer bf: q, k, v (which 0, 1, 2) of head j; the key bias
+  auto head = [&](int bf, int which, int j) {
+    return reinterpret_cast<T*>(smem + bf * A::buf + (which * HPB + j) * A::head);
+  };
+  auto bias = [&](int bf) { return reinterpret_cast<float*>(smem + bf * A::buf + 3 * HPB * A::head); };
+  // q and k read their columns past dh; v's past dh are zero too, so that
+  // ctx is 0 there and leaves q's zeros as they were when it passes
+  // through q's rows
+  if (dh < DC) {
+    for (int bf = 0; bf < NB; ++bf) zero_cols(head(bf, 0, 0), 3 * HPB * kAwSP, LD, dh, DC);
+  }
+  const HeadCopies<T> hc(dh, gran);
+  // item `it` (batch row, head group) into buffer bf as one cp.async group
+  // (an empty one past the last item, so that the counts line up)
+  auto issue = [&](int it, int bf) {
+    const int bi = it / n_hg;
+    const int h0 = (it - bi * n_hg) * HPB;
+    const int nh = min(HPB, n_heads - h0);
+    const T* q_g = qkv + size_t(bi) * s * row_stride + size_t(h0) * dh;
+#pragma unroll
+    for (int j = 0; j < HPB; ++j) {
+      if (it < items && j < nh) {
+#pragma unroll
+        for (int which = 0; which < 3; ++which) {
+          load_head(head(bf, which, j), LD, kAwSP, q_g + size_t(which) * d + j * dh, row_stride, 0, s, hc, gran);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  // the key bias of item `it`, read into a register of each of the first
+  // 128 threads before the item's products and written to buffer bf after
+  // them, so that no warp waits on the mask
+  auto mask_of = [&](int it) {
+    const int key = threadIdx.x;
+    if (it >= items || key >= kAwSP) return 0.0f;
+    return key < s ? (mask[size_t(it / n_hg) * s + key] == 0 ? -1e30f : 0.0f) : -CUDART_INF_F;
+  };
+
+  int bf = 0;
+  issue(blockIdx.x, 0);
+  if (threadIdx.x < kAwSP) bias(0)[threadIdx.x] = mask_of(blockIdx.x);
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    float next_bias = 0.0f;
+    if (NB > 1) {
+      issue(it + gridDim.x, bf ^ 1);
+      next_bias = mask_of(it + gridDim.x);
+    }
+    const int bi = it / n_hg;
+    const int h0 = (it - bi * n_hg) * HPB;
+    const int nh = min(HPB, n_heads - h0);
+    T* out_w = out + (size_t(bi) * s + row0) * d + size_t(h0) * dh;
+    cp_async_wait<NB - 1>();  // this item's copies, not the later ones'
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < HPB; ++j) {
+      if (j < nh && active) {
+        // the scores of the whole row: without guards where every 16-key
+        // group holds a key < s
+        T* q_w = head(bf, 0, j) + row0 * LD;
+        if (live16 == NT / 2) {
+          one_head<T, DC, NT / 2>(q_w, head(bf, 1, j), head(bf, 2, j), bias(bf), live16, scale_log2,
+                                  out_w + j * dh, d, s - row0, hc, gran);
+        } else {
+          one_head<T, DC, 0>(q_w, head(bf, 1, j), head(bf, 2, j), bias(bf), live16, scale_log2,
+                             out_w + j * dh, d, s - row0, hc, gran);
+        }
+      }
+    }
+    if (NB > 1 && threadIdx.x < kAwSP) bias(bf ^ 1)[threadIdx.x] = next_bias;
+    __syncthreads();  // every warp is done with buffer bf, the item after next's
+    if (NB == 1 && it + int(gridDim.x) < items) {
+      issue(it + gridDim.x, 0);
+      if (threadIdx.x < kAwSP) bias(0)[threadIdx.x] = mask_of(it + gridDim.x);
+    }
+    bf ^= NB - 1;
+  }
+}
+
+template <typename T, int DC>
+int launch_aw_one(const void* qkv, const void* mask, void* out, int b, int s, int d, int n_heads, float scale,
+                  cudaStream_t stream) {
+  using A = AwOne<T, DC>;
+  const int dh = d / n_heads;
+  const long long items = static_cast<long long>(b) * ((n_heads + A::HPB - 1) / A::HPB);
+  if (items >= (1ll << 31)) return int(cudaErrorInvalidConfiguration);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess && A::smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(any_width_one_kernel<T, DC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             int(A::smem));
+  }
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, any_width_one_kernel<T, DC>, kAwThreads, A::smem);
+  }
+  if (e != cudaSuccess) return int(e);
+  // persistent: as many blocks as the SMs hold at once
+  const long long full = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  const int grid = int(items < full ? items : full);
+  any_width_one_kernel<T, DC><<<grid, kAwThreads, A::smem, stream>>>(
+      static_cast<const T*>(qkv), static_cast<const int32_t*>(mask), static_cast<T*>(out), s, d, n_heads, dh,
+      int(items), granule(dh * int(sizeof(T))), scale * kLog2e);
+  return int(cudaGetLastError());
+}
+
+template <typename T, int DC, int MODE>
+int launch_aw(const void* qkv, const void* mask, void* out, int b, int s, int d, int n_heads, float scale,
+              cudaStream_t stream) {
+  using A = Aw<T, DC, MODE>;
+  const int dh = d / n_heads;
+  int bq = kAwBQ;
+  int nst = A::NST;
+  int kc = DC;
+  size_t smem = A::smem;
+  if (MODE == kWide) {
+    // the largest block of queries whose q, at the head's whole width,
+    // fits beside its key tiles, with two stages where they fit
+    const int dhp = (dh + 15) & ~15;
+    const size_t ldk = size_t(dhp + A::PAD) * sizeof(T);
+    const size_t stage = A::BK * (ldk + A::LD * sizeof(T)) + A::BK * 4;
+    kc = dhp;
+    smem = 0;
+    for (int cand = kAwBQ; cand >= 16 && smem == 0; cand /= 2) {
+      for (int ns = 2; ns >= 1 && smem == 0; --ns) {
+        if (cand * ldk + ns * stage <= kSmemMax) {
+          bq = cand;
+          nst = ns;
+          smem = cand * ldk + ns * stage;
+        }
+      }
+    }
+    if (smem == 0) {
+      // not even 16 queries of q fit whole: 128 queries, q.k^T in chunks
+      // of KC columns of q and k, two stages
+      const size_t ldc = size_t(A::KC + A::PAD) * sizeof(T);
+      bq = kAwBQ;
+      nst = 2;
+      kc = A::KC;
+      smem = 2 * (kAwBQ * ldc + A::BK * (ldc + A::LD * sizeof(T)) + A::BK * 4);
+    }
+  }
+  const int n_qb = (s + bq - 1) / bq;
+  const long long blocks = static_cast<long long>(b) * ((n_heads + A::HPB - 1) / A::HPB) * n_qb;
+  if (blocks >= (1ll << 31)) return int(cudaErrorInvalidConfiguration);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(any_width_kernel<T, DC, MODE>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (e != cudaSuccess) return int(e);
+  }
+  any_width_kernel<T, DC, MODE><<<unsigned(blocks), 2 * bq, smem, stream>>>(
+      static_cast<const T*>(qkv), static_cast<const int32_t*>(mask), static_cast<T*>(out), s, d, n_heads,
+      dh, n_qb, nst, kc, granule(dh * int(sizeof(T))), scale * kLog2e);
+  return int(cudaGetLastError());
+}
+
+// The one-pass wide mode (kShared): s <= SP keys (256 or 512) and a head
+// past the register one pass (dh > 128, or dh > 32 at s > 128). A block
+// takes BQ queries (128 at SP 256, 64 at SP 512): warp w holds the scores
+// of the 16 rows 16 (w % RT) .. + 15 against SP / KH keys (KH = 1 or 2
+// key ranges a row, from (w / RT) SP / KH) in registers (128 floats a
+// thread), summed over KC-column chunks of q and k streamed once through
+// two stages; then the exact max and sum (across a row's KH warps through
+// shared memory), one exp2 a score, and the normalised probabilities,
+// rounded to T, into shared memory, where they replace the chunks. p.v
+// follows with its own warp tiles: warp w takes rows 32 (w % RP) .. + 31
+// and WC columns (w / RP) of each 320-column chunk of ctx, v streamed in
+// tiles of 64 keys (32 at f32) through two stages.
+template <typename T, int SP_>
+struct AwShared {
+  static constexpr bool F32 = std::is_same<T, float>::value;
+  static constexpr int PAD = F32 ? 4 : 8;
+  static constexpr int SP = SP_;
+  static constexpr int BQ = SP == 256 ? 128 : 64;  // queries a block
+  static constexpr int RT = BQ / 16;               // row tiles of the scores
+  static constexpr int KH = 8 / RT;                // key ranges a row's scores are split in
+  static constexpr int NT = SP / KH / 8;           // n-tiles of a warp's scores
+  // columns a stage of q.k^T
+  static constexpr int KC = (F32 ? 64 : 128) * 256 / SP;
+  static constexpr int LDC = KC + PAD;  // q and k chunk row stride
+  static constexpr int LDP = SP + PAD;  // probabilities row stride
+  static constexpr int CW = 320;        // ctx columns a pass of p.v
+  static constexpr int RP = BQ / 32;    // p.v row pairs of m-tiles
+  static constexpr int WC = CW / (8 / RP);  // ctx columns a warp
+  static constexpr int NN = WC / 8;         // n-tiles of a warp's ctx rows
+  // v row stride: an odd number of 16-byte chunks at 16 bits; 8 mod 32
+  // floats at f32 (the B fragments of a warp, keys t4 and columns g, hit
+  // 32 banks)
+  static constexpr int LDV = CW + 8;
+  static constexpr int BKV = F32 ? 32 : 64;  // keys a v tile
+  static constexpr size_t qk_stage = size_t(BQ + SP) * LDC * sizeof(T);
+  static constexpr size_t p_bytes = size_t(BQ) * LDP * sizeof(T);
+  static constexpr size_t v_stage = size_t(BKV) * LDV * sizeof(T);
+  static constexpr size_t bias = SP * 4;
+  // a row's partial maxima and sums from its KH warps
+  static constexpr size_t red = KH > 1 ? size_t(2) * KH * BQ * 4 : 0;
+  static constexpr size_t region = 2 * qk_stage > p_bytes + 2 * v_stage ? 2 * qk_stage : p_bytes + 2 * v_stage;
+  static constexpr size_t smem = bias + red + region;
+  static_assert(NT == 32 && NN % 2 == 0, "128 score floats a thread, 16-column steps of ctx");
+  static_assert(smem <= kSmemMax && size_t(BQ) * LDV * sizeof(T) <= region, "a block's shared memory");
+};
+
+// o += p.v for a warp's 32 rows: p_w the probabilities (two m-tiles, row
+// stride ldp, from the tile's first key), v_t the tile's v from the
+// warp's first column; NK16 16-key steps; 16-column groups from live_c16
+// on are skipped
+template <typename T, int NK16, int NN>
+__device__ __forceinline__ void pv_acc_smem(float (&o)[2][NN][4], const T* p_w, int ldp, const T* v_t, int ldv,
+                                            int live_c16) {
+  const int lane = threadIdx.x & 31;
+  if constexpr (std::is_same<T, float>::value) {
+    const int g = lane >> 2;
+    const int t4 = lane & 3;
+#pragma unroll
+    for (int kk = 0; kk < 2 * NK16; ++kk) {
+      const float* pp = p_w + g * ldp + 8 * kk + t4;
+      const SplitA a0(pp[0], pp[8 * ldp], pp[4], pp[8 * ldp + 4]);
+      const SplitA a1(pp[16 * ldp], pp[24 * ldp], pp[16 * ldp + 4], pp[24 * ldp + 4]);
+      const float* vp = v_t + (8 * kk + t4) * ldv + g;
 #pragma unroll
       for (int c = 0; c < NN; ++c) {
-        const int col = vc * C + 8 * c + 2 * t4;
-        if (r0 < s && col < dh) out_h[size_t(r0) * d + col] = from_f32<T>(o[c][0]);
-        if (r0 < s && col + 1 < dh) out_h[size_t(r0) * d + col + 1] = from_f32<T>(o[c][1]);
-        if (r0 + 8 < s && col < dh) out_h[size_t(r0 + 8) * d + col] = from_f32<T>(o[c][2]);
-        if (r0 + 8 < s && col + 1 < dh) out_h[size_t(r0 + 8) * d + col + 1] = from_f32<T>(o[c][3]);
+        if (c / 2 < live_c16) {
+          // B (k = key, n = column): (key t4, 8c + g), (key t4 + 4, 8c + g)
+          mma_f32(o[0][c], a0, vp[8 * c], vp[4 * ldv + 8 * c]);
+          mma_f32(o[1][c], a1, vp[8 * c], vp[4 * ldv + 8 * c]);
+        }
+      }
+    }
+  } else {
+    const uint32_t pa = smem_addr(p_w + (lane & 15) * ldp + 8 * (lane >> 4));
+    const uint32_t va = smem_addr(v_t + (lane & 15) * ldv + 8 * (lane >> 4));
+#pragma unroll
+    for (int kk = 0; kk < NK16; ++kk) {
+      uint32_t a0[4], a1[4];
+      ldmatrix_x4(a0, pa + 32 * kk);
+      ldmatrix_x4(a1, pa + 2 * 16 * ldp + 32 * kk);
+#pragma unroll
+      for (int cc = 0; cc < NN / 2; ++cc) {
+        if (cc < live_c16) {
+          uint32_t vb[4];
+          ldmatrix_x4_trans(vb, va + 2 * (16 * kk * ldv + 16 * cc));
+          mma16<T>(o[0][2 * cc], a0, vb[0], vb[1]);
+          mma16<T>(o[0][2 * cc + 1], a0, vb[2], vb[3]);
+          mma16<T>(o[1][2 * cc], a1, vb[0], vb[1]);
+          mma16<T>(o[1][2 * cc + 1], a1, vb[2], vb[3]);
+        }
       }
     }
   }
 }
 
-template <typename T, int C, int V>
-int launch_any_width(const void* qkv, const void* mask, void* out, int b, int s, int d, int n_heads,
+// One block: one head of one batch row, BQ queries (8 warps). Block
+// (bi * n_heads + head) * n_qb + query block.
+template <typename T, int SP>
+__global__ void __launch_bounds__(kAwThreads, 1)
+    any_width_shared_kernel(const T* __restrict__ qkv, const int32_t* __restrict__ mask, T* __restrict__ out,
+                            int s, int d, int n_heads, int dh, int n_qb, int gran, float scale_log2) {
+  using A = AwShared<T, SP>;
+  constexpr int NT = A::NT;
+  constexpr int LDC = A::LDC;
+  constexpr int LDP = A::LDP;
+  constexpr int LDV = A::LDV;
+  constexpr int BQ = A::BQ;
+  constexpr int KH = A::KH;
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int qb = blockIdx.x % n_qb;
+  const int bh = blockIdx.x / n_qb;
+  const int bi = bh / n_heads;
+  const int hi = bh - bi * n_heads;
+  const int q0 = qb * BQ;
+  const int rt = warp % A::RT;  // the warp's score rows 16 rt .. 16 rt + 15
+  const int kh = warp / A::RT;  // and keys kh SP / KH .. of them
+  const bool active = q0 + 16 * rt < s;
+  const size_t row_stride = size_t(3) * d;
+  const T* q_g = qkv + size_t(bi) * s * row_stride + size_t(hi) * dh;
+  const T* k_g = q_g + d;
+  const T* v_g = q_g + 2 * size_t(d);
+  const int32_t* mrow = mask + size_t(bi) * s;
+  T* out_h = out + (size_t(bi) * s + q0) * d + size_t(hi) * dh;
+
+  // the key bias [SP] f32; a row's partial maxima and sums [KH][BQ] f32
+  // each (KH > 1); then either two stages of q [BQ][LDC] and k [SP][LDC]
+  // chunks, or the probabilities [BQ][LDP] and two stages of v [BKV][LDV]
+  float* bias = reinterpret_cast<float*>(smem);
+  float* red_m = reinterpret_cast<float*>(smem + A::bias);
+  float* red_l = red_m + KH * BQ;
+  unsigned char* region = smem + A::bias + A::red;
+  auto q_st = [&](int st) { return reinterpret_cast<T*>(region + st * A::qk_stage); };
+  T* p_s = reinterpret_cast<T*>(region);
+  auto v_st = [&](int st) { return reinterpret_cast<T*>(region + A::p_bytes + st * A::v_stage); };
+
+  fill_bias(bias, A::SP, mrow, 0, s);
+  // 16-key groups that hold a key < s, of all and of the warp's keys
+  const int live16 = (s + 15) >> 4;
+  const int lv = min(NT / 2, max(0, live16 - kh * (NT / 2)));
+  const int n_kc = (dh + A::KC - 1) / A::KC;
+  // column chunk c of q and of the keys into stage c % 2; a last chunk
+  // narrower than KC gets zeros past the head, which q.k^T reads
+  auto issue_qk = [&](int c) {
+    T* qd = q_st(c & 1);
+    T* kd = qd + BQ * LDC;
+    const int ncols = min(A::KC, dh - c * A::KC);
+    if (ncols < A::KC) {
+      zero_cols(qd, BQ, LDC, ncols, A::KC);
+      zero_cols(kd, 16 * live16, LDC, ncols, A::KC);
+    }
+    const HeadCopies<T> hc(ncols, gran);
+    load_head(qd, LDC, BQ, q_g + c * A::KC, row_stride, q0, s, hc, gran);
+    load_head(kd, LDC, 16 * live16, k_g + c * A::KC, row_stride, 0, s, hc, gran);
+    cp_async_commit();
+  };
+  float sc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.0f;
+  issue_qk(0);
+  for (int c = 0; c < n_kc; ++c) {
+    if (c + 1 < n_kc) {
+      issue_qk(c + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (active) {
+      const T* qd = q_st(c & 1);
+      const T* kd = qd + (BQ + kh * 16 * (NT / 2)) * LDC;
+      const int nks = (min(A::KC, dh - c * A::KC) + 15) >> 4;
+      // without guards where every 16-key group holds a key < s
+      if (lv == NT / 2) {
+        qk_acc<T, NT>(sc, qd + rt * 16 * LDC, kd, LDC, nks, NT / 2);
+      } else {
+        qk_acc<T, NT>(sc, qd + rt * 16 * LDC, kd, LDC, nks, lv);
+      }
+    }
+    __syncthreads();  // every warp is done with the stage the next copies overwrite
+  }
+
+  // the exact row max and sum, one exp2 a score (a row's KH warps
+  // exchange their partial maxima and sums through shared memory; each
+  // holds a key < s); the normalised probabilities rounded to T (the
+  // Pallas kernel's rounding point; at f32 nothing is rounded) into p_s,
+  // zero for keys past s
+  const int sr = 16 * rt + g;  // the block's rows sr and sr + 8
+  float m0 = 0.0f, m1 = 0.0f, l0 = 1.0f, l1 = 1.0f;
+  if (active) scale_bias<NT>(sc, bias + kh * 8 * NT, scale_log2, m0, m1);
+  if (KH > 1) {
+    if (active && t4 == 0) {
+      red_m[kh * BQ + sr] = m0;
+      red_m[kh * BQ + sr + 8] = m1;
+    }
+    __syncthreads();
+    if (active) {
+#pragma unroll
+      for (int k = 0; k < KH; ++k) {
+        m0 = fmaxf(m0, red_m[k * BQ + sr]);
+        m1 = fmaxf(m1, red_m[k * BQ + sr + 8]);
+      }
+    }
+  }
+  if (active) {
+    if (lv == NT / 2) {
+      exp_sum<NT>(sc, m0, m1, NT / 2, l0, l1);
+    } else {
+      exp_sum<NT>(sc, m0, m1, lv, l0, l1);
+    }
+  }
+  if (KH > 1) {
+    if (active && t4 == 0) {
+      red_l[kh * BQ + sr] = l0;
+      red_l[kh * BQ + sr + 8] = l1;
+    }
+    __syncthreads();
+    if (active) {
+      l0 = l1 = 0.0f;
+#pragma unroll
+      for (int k = 0; k < KH; ++k) {
+        l0 += red_l[k * BQ + sr];
+        l1 += red_l[k * BQ + sr + 8];
+      }
+    }
+  }
+  if (active) {
+    const float inv0 = 1.0f / l0, inv1 = 1.0f / l1;
+    T* pr = p_s + sr * LDP + kh * 8 * NT + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      if constexpr (A::F32) {
+        *reinterpret_cast<float2*>(pr + 8 * n) = make_float2(sc[n][0] * inv0, sc[n][1] * inv0);
+        *reinterpret_cast<float2*>(pr + 8 * LDP + 8 * n) = make_float2(sc[n][2] * inv1, sc[n][3] * inv1);
+      } else {
+        *reinterpret_cast<uint32_t*>(pr + 8 * n) = pack2<T>(sc[n][0] * inv0, sc[n][1] * inv0);
+        *reinterpret_cast<uint32_t*>(pr + 8 * LDP + 8 * n) = pack2<T>(sc[n][2] * inv1, sc[n][3] * inv1);
+      }
+    }
+  }
+  __syncthreads();  // p_s whole; the chunk stages are free for v
+
+  const int pr = warp % A::RP;         // p.v rows 32 pr .. 32 pr + 31
+  const int wc = A::WC * (warp / A::RP);  // and columns wc .. wc + WC - 1 of each chunk
+  const bool pv_active = q0 + 32 * pr < s;
+  const int n_vt = (s + A::BKV - 1) / A::BKV;
+  for (int c0 = 0; c0 < dh; c0 += A::CW) {
+    const int vcols = min(A::CW, dh - c0);
+    const int live_c16 = max(0, min(A::NN / 2, (vcols - wc + 15) >> 4));
+    float o[2][A::NN][4];
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+#pragma unroll
+      for (int c = 0; c < A::NN; ++c) o[m][c][0] = o[m][c][1] = o[m][c][2] = o[m][c][3] = 0.0f;
+    }
+    const HeadCopies<T> hv(vcols, gran);
+    auto issue_v = [&](int t) {
+      load_head(v_st(t & 1), LDV, A::BKV, v_g + c0, row_stride, t * A::BKV, s, hv, gran);
+      cp_async_commit();
+    };
+    issue_v(0);
+    for (int t = 0; t < n_vt; ++t) {
+      if (t + 1 < n_vt) {
+        issue_v(t + 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      if (pv_active && live_c16 > 0) {
+        pv_acc_smem<T, A::BKV / 16, A::NN>(o, p_s + 32 * pr * LDP + t * A::BKV, LDP, v_st(t & 1) + wc, LDV,
+                                           live_c16);
+      }
+      __syncthreads();
+    }
+    if (c0 + A::CW >= dh) {
+      // the last chunk: p_s and the v stages are free (the loop's last
+      // barrier), so ctx goes out through them in gran-byte copies of
+      // whole rows
+      T* cs = reinterpret_cast<T*>(region);  // [BQ][LDV]
+      if (pv_active) {
+#pragma unroll
+        for (int m = 0; m < 2; ++m) stage_ctx<T, A::NN>(o[m], cs + (32 * pr + 16 * m) * LDV + wc, LDV, vcols - wc);
+      }
+      __syncthreads();
+      copy_rows(out_h + c0, d, cs, LDV, min(BQ, s - q0), hv, gran, threadIdx.x >> 5, kAwThreads / 32);
+    } else if (pv_active) {
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const int r = 32 * pr + 16 * m;
+        store_ctx_direct<T, A::NN>(o[m], out_h + size_t(r) * d + c0 + wc, d, s - q0 - r, vcols - wc,
+                                   dh % 2 == 0);
+      }
+    }
+  }
+}
+
+template <typename T, int SP>
+int launch_aw_shared(const void* qkv, const void* mask, void* out, int b, int s, int d, int n_heads,
                      float scale, cudaStream_t stream) {
-  using A = AnyWidth<C>;
-  const int n_qb = (s + kBQ - 1) / kBQ;
+  using A = AwShared<T, SP>;
+  const int dh = d / n_heads;
+  const int n_qb = (s + A::BQ - 1) / A::BQ;
   const long long blocks = static_cast<long long>(b) * n_heads * n_qb;
   if (blocks >= (1ll << 31)) return int(cudaErrorInvalidConfiguration);
-  if (A::smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(any_width_kernel<T, C, V>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               int(A::smem));
-    if (e != cudaSuccess) return int(e);
-  }
-  any_width_kernel<T, C, V><<<unsigned(blocks), kF32Threads, A::smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<const int32_t*>(mask), static_cast<T*>(out), s, d,
-      n_heads, d / n_heads, n_qb, scale * kLog2e);
+  const cudaError_t e = cudaFuncSetAttribute(any_width_shared_kernel<T, SP>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, int(A::smem));
+  if (e != cudaSuccess) return int(e);
+  any_width_shared_kernel<T, SP><<<unsigned(blocks), kAwThreads, A::smem, stream>>>(
+      static_cast<const T*>(qkv), static_cast<const int32_t*>(mask), static_cast<T*>(out), s, d, n_heads,
+      dh, n_qb, granule(dh * int(sizeof(T))), scale * kLog2e);
   return int(cudaGetLastError());
 }
 
-// the column chunk: the least of 16 and 32 that holds the head, else 64,
-// read in 16-byte vectors where the head width is a multiple of theirs
+// one pass where every key fits in the block (s <= 128), else two
+template <typename T, int DC>
+int launch_aw_s(const void* qkv, const void* mask, void* out, int b, int s, int d, int n_heads, float scale,
+                cudaStream_t stream) {
+  if (s <= kAwSP) return launch_aw_one<T, DC>(qkv, mask, out, b, s, d, n_heads, scale, stream);
+  return launch_aw<T, DC, kTwoPass>(qkv, mask, out, b, s, d, n_heads, scale, stream);
+}
+
+// Narrow heads (dh <= 32, 4 or 2 to a block): one pass with the scores in
+// registers (s <= 128), else two. Wider heads: the register one pass at
+// dh <= 128 and s <= 128; kShared at s <= 256 and at s <= 512; past that
+// kWide's two passes.
 template <typename T>
-int launch_any_width_dh(const void* qkv, const void* mask, void* out, int b, int s, int d,
-                        int n_heads, float scale, cudaStream_t stream) {
-  constexpr int VEC = 16 / sizeof(T);
+int launch_any_width_dh(const void* qkv, const void* mask, void* out, int b, int s, int d, int n_heads,
+                        float scale, cudaStream_t stream) {
   const int dh = d / n_heads;
-  if (dh <= 16) return launch_any_width<T, 16, 1>(qkv, mask, out, b, s, d, n_heads, scale, stream);
-  if (dh <= 32) return launch_any_width<T, 32, 1>(qkv, mask, out, b, s, d, n_heads, scale, stream);
-  if (dh % VEC == 0) return launch_any_width<T, 64, VEC>(qkv, mask, out, b, s, d, n_heads, scale, stream);
-  return launch_any_width<T, 64, 1>(qkv, mask, out, b, s, d, n_heads, scale, stream);
+  if (dh <= 16) return launch_aw_s<T, 16>(qkv, mask, out, b, s, d, n_heads, scale, stream);
+  if (dh <= 32) return launch_aw_s<T, 32>(qkv, mask, out, b, s, d, n_heads, scale, stream);
+  if (s <= kAwSP && dh <= 64) return launch_aw_one<T, 64>(qkv, mask, out, b, s, d, n_heads, scale, stream);
+  if (s <= kAwSP && dh <= 128) return launch_aw_one<T, 128>(qkv, mask, out, b, s, d, n_heads, scale, stream);
+  if (s <= 256) return launch_aw_shared<T, 256>(qkv, mask, out, b, s, d, n_heads, scale, stream);
+  if (s <= 512) return launch_aw_shared<T, 512>(qkv, mask, out, b, s, d, n_heads, scale, stream);
+  return launch_aw<T, kAwChunk, kWide>(qkv, mask, out, b, s, d, n_heads, scale, stream);
 }
 
 }  // namespace

@@ -18,9 +18,13 @@ multiples of 8 up to 256, two tiled kernels that take 128 queries a
 block and stream the head's keys once in tiles with an online softmax
 (one exp2 and one q.k^T a score): ``wgmma`` products fed by TMA copies
 for bf16 and f16, and 3xTF32 ``mma.sync`` products for f32; and for
-every other head width (dh 12, dh 320) an any-width kernel that reads
-the head element by element in column chunks and takes the softmax in
-two passes, as the TPU kernel's arithmetic. The tiled kernels round the
+every other head width (dh 12, dh 320) an any-width family at the TPU
+kernel's rounding point (the exact row max and sum, then the normalised
+probabilities rounded to qkv's dtype): one pass with the scores in
+registers (s <= 128, dh <= 128; narrow heads share a block), one pass
+with the probabilities in shared memory (s <= 512), two passes past
+that; bf16/f16 ``mma.sync`` products, heads copied by ``cp.async`` in
+the widest copy their width allows. The tiled kernels round the
 probabilities to qkv's dtype relative to the running max, before the
 division by the row sum, where the TPU kernel rounds the normalised
 probabilities; the two agree to the order of one flipped rounding

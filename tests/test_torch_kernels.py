@@ -72,7 +72,23 @@ def test_build_key_covers_source_and_flags():
 # f16 and f32 the tiled ones), a ragged s at dh 256 (64-key tiles) and at
 # dh 96 (three 32-column sub-tiles); then the any-width kernel: head_dim
 # 1, 4, 12, 20 (off the multiples of 8: heads at 2-byte offsets), 264 and
-# 320 (past 256: several 64-column chunks), at ragged s and odd batches
+# 320 (past 256), at ragged s and odd batches; then the edges of its
+# branches (tests/test_torch_ops.py's ODD_SHAPES): s 128 and 129 at dh 12,
+# 20 and 36 (one pass with the scores in registers, then not), s 256 and
+# 257 at dh 320 (one pass with the scores in shared memory, then two);
+# narrow blocks whose 4 or 2 heads do not divide the row's 6 or 5 (the
+# second with rows of 600 bytes, not a multiple of 16); and past s 256, dh
+# 480 and 488, 640 and 648, 288 and 296, 352 and 360, where the wide
+# heads' key-tile stages or queries a block step down; and batches of 200
+# to 600 rows at dh 12, 20 and 36 and s <= 128, where each block of the
+# persistent one-pass grid takes several items through both its buffers;
+# and dh 2192 and 2200, 1648 and 1656, the widest heads whose q stays
+# whole beside a key tile at 16 bits and at f32, and one step past each,
+# where q.k^T takes q and k in column chunks; the wide heads' steps at s
+# 300 take the one pass with the scores in shared memory for s <= 512 (64
+# queries a block, a row's keys split over two warps), so they are here
+# again at s 600, where the two passes take them; and s 512 and 513 at dh
+# 320 (the last that the one pass takes, then two)
 CARD_SHAPES = [
     (64, 64, 384, 6), (32, 128, 256, 8), (8, 16, 64, 2),
     (5, 16, 192, 3), (7, 32, 128, 2), (16, 128, 384, 6),
@@ -83,6 +99,16 @@ CARD_SHAPES = [
     (4, 127, 512, 8), (4, 128, 512, 8), (4, 255, 512, 8), (4, 257, 512, 8),
     (4, 77, 512, 2), (4, 131, 768, 8),
     (5, 20, 2, 2), (5, 33, 8, 2), (6, 77, 36, 3), (4, 130, 40, 2), (3, 70, 264, 1), (2, 200, 640, 2),
+    (4, 128, 96, 8), (4, 129, 96, 8), (4, 128, 160, 8), (4, 129, 160, 8), (3, 128, 72, 2), (3, 129, 72, 2),
+    (2, 256, 320, 1), (2, 257, 320, 1), (3, 50, 72, 6), (3, 77, 100, 5),
+    (2, 300, 480, 1), (2, 300, 488, 1), (2, 300, 640, 1), (2, 300, 648, 1),
+    (2, 300, 288, 1), (2, 300, 296, 1), (2, 300, 352, 1), (2, 300, 360, 1),
+    (600, 100, 96, 8), (300, 128, 160, 8), (200, 120, 72, 2),
+    (2, 300, 2192, 1), (2, 300, 2200, 1), (2, 300, 1648, 1), (2, 300, 1656, 1),
+    (2, 600, 480, 1), (2, 600, 488, 1), (2, 600, 640, 1), (2, 600, 648, 1),
+    (2, 600, 288, 1), (2, 600, 296, 1), (2, 600, 352, 1), (2, 600, 360, 1),
+    (2, 600, 2192, 1), (2, 600, 2200, 1), (2, 600, 1648, 1), (2, 600, 1656, 1),
+    (3, 512, 640, 2), (3, 513, 640, 2),
 ]
 # every dtype the kernel takes, and its bound against the plain version:
 # one bf16 ulp at |ctx| < 4 for the 16-bit types (a flipped rounding), the
@@ -128,7 +154,9 @@ def test_kernel_matches_plain_on_card_in_f16_and_f32(cuda_device, b, s, d, h, dt
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["bf16", "f16", "f32"])
 @pytest.mark.parametrize(
-    "b,s,d,h", [(8, 100, 384, 6), (8, 300, 512, 8), (4, 512, 512, 8), (4, 200, 512, 2), (4, 200, 36, 3)]
+    "b,s,d,h",
+    [(8, 100, 384, 6), (8, 300, 512, 8), (4, 512, 512, 8), (4, 200, 512, 2), (4, 200, 36, 3),
+     (4, 128, 96, 8), (4, 129, 160, 8), (2, 300, 648, 1)],
 )
 def test_kernel_matches_plain_on_card_with_suffix_masks(cuda_device, b, s, d, h, dtype):
     """Masks that hold each row's last keys: rows start with padding, a
@@ -140,7 +168,9 @@ def test_kernel_matches_plain_on_card_with_suffix_masks(cuda_device, b, s, d, h,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "s,d,h", [(64, 384, 6), (128, 256, 8), (40, 128, 2), (256, 512, 8), (1000, 64, 2)]
+    "s,d,h",
+    [(64, 384, 6), (128, 256, 8), (40, 128, 2), (256, 512, 8), (1000, 64, 2), (128, 96, 8), (129, 160, 8),
+     (100, 648, 1)],
 )
 def test_kernel_all_padding_batch_has_no_nan(cuda_device, s, d, h):
     """Every row all padding: each row of ctx is the mean of its s keys

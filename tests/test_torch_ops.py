@@ -60,8 +60,32 @@ LONG_SHAPES = [
     (4, 40, 16, 2), (4, 40, 32, 2), (2, 64, 96, 1), (2, 64, 256, 2), (2, 40, 256, 1),
 ]
 # the any-width kernel's: head_dim 1, 4, 12, 20 (off the multiples of 8)
-# and 264, 320 (past 256), with suffix masks (rows start with padding)
-ODD_SHAPES = [(4, 20, 2, 2), (3, 33, 8, 2), (2, 77, 36, 3), (2, 130, 40, 2), (2, 70, 264, 1), (2, 40, 640, 2)]
+# and 264, 320 (past 256), with suffix masks (rows start with padding);
+# then the edges of its branches: s 128 (the last that one pass holds in
+# registers) and 129 at dh 12, 20 and 36; s 256 (the last whose scores a
+# block holds in shared memory) and 257 at dh 320; a head count that the
+# narrow blocks' 4 (dh 12) or 2 (dh 20) heads do not divide, the second
+# with qkv rows of 600 bytes (3d times 2 bytes, not a multiple of 16); and,
+# past s 256, the wide heads' steps: dh 480 and 488 (two key-tile stages
+# beside 128 queries at 16 bits, then one), 640 and 648 (128 queries at 16
+# bits, then 64), 288 and 296, 352 and 360 (the same two steps at f32),
+# and 2192 and 2200, 1648 and 1656 (the widest whose q stays whole beside
+# a key tile at 16 bits and at f32, then q.k^T in column chunks): at s 260
+# these take the one pass with the scores in shared memory for s <= 512,
+# and at s 520 the two passes, whose steps they are; and s 512 and 513 at
+# dh 320 (the last that the one pass takes, then two)
+ODD_SHAPES = [
+    (4, 20, 2, 2), (3, 33, 8, 2), (2, 77, 36, 3), (2, 130, 40, 2), (2, 70, 264, 1), (2, 40, 640, 2),
+    (2, 128, 24, 2), (2, 129, 24, 2), (2, 128, 40, 2), (2, 129, 40, 2), (2, 128, 72, 2), (2, 129, 72, 2),
+    (1, 256, 320, 1), (1, 257, 320, 1), (2, 20, 72, 6), (2, 30, 100, 5),
+    (1, 260, 480, 1), (1, 260, 488, 1), (1, 260, 640, 1), (1, 260, 648, 1),
+    (1, 260, 288, 1), (1, 260, 296, 1), (1, 260, 352, 1), (1, 260, 360, 1),
+    (1, 260, 2192, 1), (1, 260, 2200, 1), (1, 260, 1648, 1), (1, 260, 1656, 1),
+    (1, 520, 480, 1), (1, 520, 488, 1), (1, 520, 640, 1), (1, 520, 648, 1),
+    (1, 520, 288, 1), (1, 520, 296, 1), (1, 520, 352, 1), (1, 520, 360, 1),
+    (1, 520, 2192, 1), (1, 520, 2200, 1), (1, 520, 1648, 1), (1, 520, 1656, 1),
+    (1, 512, 320, 1), (1, 513, 320, 1),
+]
 ATTENTION_SHAPES += LONG_SHAPES + ODD_SHAPES
 
 
