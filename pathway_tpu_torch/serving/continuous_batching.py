@@ -41,11 +41,30 @@ cannot be built raises.
 
 Decoding here is greedy (argmax); sampled generation keeps the
 wave-aligned path.
+
+**Counters** (``stats``, always on: a few clock reads a step, a prefill
+and a request). A step's host time splits at the return of the step
+program into ``step_launch_seconds`` (upload and launches) and
+``step_sync_seconds`` (the token read-back: the host waits while the
+device finishes), and a prefill's likewise; each pair sums to
+``step_seconds`` or ``prefill_seconds`` exactly in nanoseconds, and the
+decode thread publishes a step's or a prefill's counters in one
+``dict.update``, so a copy of ``stats`` taken on another thread holds
+whole ones. ``loop_seconds`` is the decode thread's time in its loop,
+``queue_seconds`` each request's wait from ``submit`` to its prefill,
+``submit_seconds`` the callers' time in ``submit``. With the
+observability plane on, the batcher also records spans (``cb.request``
+with ``cb.queue``; ``cb.prefill``; ``cb.step`` with ``.upload``,
+``.launch``, ``.sync``; ``internals/spans.py``) and the histograms
+``pathway_serving_queue_wait_seconds``,
+``pathway_serving_first_token_seconds`` and
+``pathway_serving_step_seconds{phase}`` for operators.
 """
 
 from __future__ import annotations
 
 import functools
+import itertools
 import os
 import threading
 import time
@@ -58,6 +77,7 @@ import torch
 
 from pathway_tpu_torch.engine.device_plane import get_device_plane
 from pathway_tpu_torch.internals import observability as _obs
+from pathway_tpu_torch.internals import spans as _spans
 from pathway_tpu_torch.models import transformer
 from pathway_tpu_torch.parallel import spmd
 from pathway_tpu_torch.parallel.mesh import P, Sharded, default_mesh
@@ -78,10 +98,19 @@ def mesh_slots_on() -> bool:
     return os.environ.get("PATHWAY_MESH_SLOTS", "0") == "1"
 
 
+_REQUEST_IDS = itertools.count(1)
+
+
 class _Request:
-    __slots__ = ("row", "length", "future", "tokens", "token", "steps_done", "slot", "pad_len", "width")
+    __slots__ = (
+        "row", "length", "future", "tokens", "token", "steps_done", "slot", "pad_len", "width",
+        "id", "span", "submit_ns", "queued_ns", "first_ns",
+    )
 
     def __init__(self, row: list, future: Future):
+        self.id = next(_REQUEST_IDS)
+        self.span = 0  # its cb.request span's id, with the plane on
+        self.submit_ns = self.queued_ns = self.first_ns = 0  # span clock
         self.row = row  # token ids (already budget-truncated)
         self.length = len(row)
         self.future = future
@@ -158,24 +187,42 @@ class ContinuousBatcher:
         self._active: dict[int, _Request] = {}  # slot -> request
         self._running = False
         self._thread: threading.Thread | None = None
-        # counts, and the host seconds spent in prefills and steps (each
-        # with its read-back of the tokens)
+        # the decode thread's timed keys and the callers' submit time, in
+        # nanoseconds; `stats` shows them in seconds
+        self._ns = dict.fromkeys((
+            "step_seconds", "step_launch_seconds", "step_sync_seconds", "prefill_seconds",
+            "prefill_launch_seconds", "prefill_sync_seconds", "loop_seconds", "queue_seconds",
+        ), 0)
+        self._submit_ns = 0
+        # counts and host seconds (module docstring); every value a number
         self.stats = {
             "submitted": 0, "completed": 0, "decode_steps": 0, "prefills": 0, "max_queue": 0,
-            "prefill_seconds": 0.0, "step_seconds": 0.0,
+            "prefill_tokens": 0, "prefill_positions": 0, "submit_seconds": 0.0,
+            **dict.fromkeys(self._ns, 0.0),
         }
+        self._labels = {"pool": self.pool.name}
+        _obs.maybe_enable_from_env()  # the plane's switch holds outside pw.run too
 
     # ------------------------------------------------------------- surface
 
     def submit(self, prompt: str) -> Future:
         """Queue one prompt; the future resolves to the token string."""
+        t0 = time.perf_counter_ns()
         row = list(self.tokenizer.tokenize(prompt))[-self.budget:]
         fut: Future = Future()
         req = _Request(row, fut)
+        req.submit_ns = t0
+        if _obs.PLANE is not None:
+            req.span = _spans.new_span_id()
         with self._lock:
+            req.queued_ns = time.perf_counter_ns()
             self._queue.append(req)
-            self.stats["submitted"] += 1
-            self.stats["max_queue"] = max(self.stats["max_queue"], len(self._queue))
+            self._submit_ns += req.queued_ns - t0
+            st = self.stats
+            st.update(
+                submitted=st["submitted"] + 1, max_queue=max(st["max_queue"], len(self._queue)),
+                submit_seconds=self._submit_ns / 1e9,
+            )
             if not self._running:
                 self._running = True
                 # not a daemon: the thread ends when the pool drains, and
@@ -186,6 +233,21 @@ class ContinuousBatcher:
                 )
                 self._thread.start()
         return fut
+
+    def _count(self, mark: int, now: int, counts: dict, **ns: int) -> int:
+        """Add `counts` and the nanoseconds `ns` to the decode thread's
+        counters, with its loop's time from `mark` (its last count) to
+        `now`, and publish them in ``stats`` in one ``dict.update``.
+        Returns `now`, the next mark."""
+        acc = self._ns
+        acc["loop_seconds"] += now - mark
+        for k, v in ns.items():
+            acc[k] += v
+        st = self.stats
+        update = {k: st[k] + v for k, v in counts.items()}
+        update.update((k, v / 1e9) for k, v in acc.items())
+        st.update(update)
+        return now
 
     def queue_depth(self) -> int:
         """Requests queued plus requests holding a slot."""
@@ -269,6 +331,7 @@ class ContinuousBatcher:
                     self._plane.restore(self._cache_key, cache)
 
     def _run(self, cache: Any) -> None:
+        mark = time.perf_counter_ns()
         while True:
             # ---- step boundary: re-fill freed slots from the queue
             while True:
@@ -281,7 +344,7 @@ class ContinuousBatcher:
                     req = self._queue.popleft()
                     self._active[slot] = req
                     req.slot = slot
-                self._admit(req, slot, cache)
+                mark = self._admit(req, slot, cache, mark)
             with self._lock:
                 if not self._active:
                     # exit under the lock: a submit racing this check
@@ -289,6 +352,7 @@ class ContinuousBatcher:
                     # starts a fresh thread
                     if self._queue:
                         continue
+                    self._count(mark, time.perf_counter_ns(), {})
                     self._running = False
                     return
                 batch = dict(self._active)
@@ -297,17 +361,30 @@ class ContinuousBatcher:
             vec = np.zeros((3, self.n_slots), np.int64)
             for slot, req in batch.items():
                 vec[:, slot] = (req.token, req.width + req.steps_done, req.pad_len)
-            t0 = time.perf_counter()
-            tok, pos, pad = torch.from_numpy(vec).to(self.device).unbind(0)
-            nxt, _ = self._step(self.params, cache, tok, pos, pad, bucket=self.n_slots)
-            nxt = nxt.tolist()  # the step's one wait for the device
-            self.stats["step_seconds"] += time.perf_counter() - t0
-            self.stats["decode_steps"] += 1
-            if _obs.PLANE is not None:
-                _obs.PLANE.metrics.counter(
-                    "pathway_serving_decode_steps_total", {"pool": self.pool.name},
+            with _spans.span("cb.step", leaf=False) as sp:
+                if sp.id:  # recording: the rows and their real keys before this step
+                    sp.set(rows=len(batch), keys=sum(r.length + r.steps_done for r in batch.values()))
+                t0 = time.perf_counter_ns()
+                with _spans.span("cb.step.upload"):
+                    tok, pos, pad = torch.from_numpy(vec).to(self.device).unbind(0)
+                with _spans.span("cb.step.launch"):
+                    nxt, _ = self._step(self.params, cache, tok, pos, pad, bucket=self.n_slots)
+                t1 = time.perf_counter_ns()
+                with _spans.span("cb.step.sync"):
+                    nxt = nxt.tolist()  # the step's one wait for the device
+                t2 = time.perf_counter_ns()
+            mark = self._count(
+                mark, t2, {"decode_steps": 1},
+                step_seconds=t2 - t0, step_launch_seconds=t1 - t0, step_sync_seconds=t2 - t1,
+            )
+            plane = _obs.PLANE
+            if plane is not None:
+                m = plane.metrics
+                m.counter(
+                    "pathway_serving_decode_steps_total", self._labels,
                     help="continuous-batching decode steps dispatched",
                 )
+                self._observe_phases(m, "step", t1 - t0, t2 - t1)
             for slot, req in batch.items():
                 req.steps_done += 1
                 req.token = nxt[slot]
@@ -315,36 +392,77 @@ class ContinuousBatcher:
                 if len(req.tokens) >= self.n_steps:
                     self._finish(slot, req)
 
-    def _admit(self, req: _Request, slot: int, cache: Any) -> None:
+    def _observe_phases(self, m: Any, what: str, launch_ns: int, sync_ns: int) -> None:
+        for phase, ns in (("launch", launch_ns), ("sync", sync_ns)):
+            m.observe(
+                "pathway_serving_step_seconds", ns / 1e9,
+                {"pool": self.pool.name, "phase": f"{what}_{phase}"},
+                help="host seconds of a decode step or prefill, launch and token read-back apart",
+            )
+
+    def _admit(self, req: _Request, slot: int, cache: Any, mark: int) -> int:
         """Prefill one queued request into its freshly acquired slot (the
-        join at a step boundary)."""
-        t0 = time.perf_counter()
-        ids, mask = pad_left_rows([req.row], self.budget, n_rows=1)
-        req.width = ids.shape[1]
-        req.pad_len = req.width - req.length
-        params, dev, row = self.params, self.device, slot
-        if self.mesh is not None:
-            # the prefill runs on the device of the slot's shard, into
-            # that shard's block of the cache
-            shard, row = divmod(slot, self.shard_slots)
-            dev = self.mesh.device(shard)
-            params = transformer.tree_map(lambda t: t.shards[shard], self._mesh_params)
-            cache = {name: c.shards[shard] for name, c in cache.items()}
-        first, _ = self._prefill(
-            params, torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev), cache,
-            torch.tensor(row), bucket=(1, req.width),
+        join at a step boundary); returns the decode loop's next mark."""
+        with _spans.span("cb.prefill", parent=req.span, request=req.id, leaf=False) as sp:
+            t0 = time.perf_counter_ns()
+            with _spans.span("cb.prefill.launch"):
+                ids, mask = pad_left_rows([req.row], self.budget, n_rows=1)
+                req.width = ids.shape[1]
+                req.pad_len = req.width - req.length
+                params, dev, row = self.params, self.device, slot
+                if self.mesh is not None:
+                    # the prefill runs on the device of the slot's shard, into
+                    # that shard's block of the cache
+                    shard, row = divmod(slot, self.shard_slots)
+                    dev = self.mesh.device(shard)
+                    params = transformer.tree_map(lambda t: t.shards[shard], self._mesh_params)
+                    cache = {name: c.shards[shard] for name, c in cache.items()}
+                first, _ = self._prefill(
+                    params, torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev), cache,
+                    torch.tensor(row), bucket=(1, req.width),
+                )
+            t1 = time.perf_counter_ns()
+            with _spans.span("cb.prefill.sync"):
+                req.token = int(first[0])
+            t2 = req.first_ns = time.perf_counter_ns()
+            if sp.id:
+                sp.set(slot=slot, tokens=req.length, positions=req.width)
+        mark = self._count(
+            mark, t2,
+            {"prefills": 1, "prefill_tokens": req.length, "prefill_positions": req.width},
+            prefill_seconds=t2 - t0, prefill_launch_seconds=t1 - t0, prefill_sync_seconds=t2 - t1,
+            queue_seconds=t0 - req.queued_ns,
         )
-        req.token = int(first[0])
-        self.stats["prefill_seconds"] += time.perf_counter() - t0
+        plane = _obs.PLANE
+        if plane is not None:
+            m = plane.metrics
+            m.observe(
+                "pathway_serving_queue_wait_seconds", (t0 - req.queued_ns) / 1e9, self._labels,
+                help="a request's wait from submit to the start of its prefill",
+            )
+            m.observe(
+                "pathway_serving_first_token_seconds", (t2 - req.submit_ns) / 1e9, self._labels,
+                help="submit to a request's first token",
+            )
+            self._observe_phases(m, "prefill", t1 - t0, t2 - t1)
+            _spans.add_span("cb.queue", req.queued_ns, t0, parent=req.span, request=req.id)
         req.tokens.append(req.token)
-        self.stats["prefills"] += 1
         if len(req.tokens) >= self.n_steps:  # n_steps == 1
             self._finish(slot, req)
+        return mark
 
     def _finish(self, slot: int, req: _Request) -> None:
         with self._lock:
             self._active.pop(slot, None)
             self.stats["completed"] += 1
         self.pool.release(slot)
+        if _obs.PLANE is not None:
+            _spans.add_span(
+                "cb.request", req.submit_ns, time.perf_counter_ns(), span_id=req.span or None,
+                request=req.id, attrs={
+                    "slot": slot, "steps": req.steps_done,
+                    "first_token_ms": (req.first_ns - req.submit_ns) / 1e6,
+                },
+            )
         if not req.future.done():
             req.future.set_result(" ".join(f"<{int(t)}>" for t in req.tokens))

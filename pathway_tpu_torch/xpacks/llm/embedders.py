@@ -10,6 +10,14 @@ every row of a wave into one encoder dispatch on the card;
 (``OpenAIEmbedder``, ``LiteLLMEmbedder``, ``GeminiEmbedder``) and the
 local ``SentenceTransformerEmbedder`` (on the card by default) are the JAX
 package's, each importing its provider's package when built.
+
+``TorchEmbedder`` records a batch as the span ``embed.batch`` over the
+leaf spans ``embed.tokenize``, ``embed.pad``, ``embed.upload``,
+``embed.encode`` (the launches) and ``embed.readback`` (profiler
+annotations ``pathway/embed.<phase>`` while a ``torch.profiler`` session
+runs), and with the observability plane on counts
+``pathway_embed_seconds_total{phase}`` and
+``pathway_embed_tokens_total{kind=real|padded}``.
 """
 
 from __future__ import annotations
@@ -22,6 +30,8 @@ import torch
 
 import pathway_tpu_torch as pw
 from pathway_tpu_torch.engine.device_plane import get_device_plane
+from pathway_tpu_torch.internals import observability as _obs
+from pathway_tpu_torch.internals import spans as _spans
 from pathway_tpu_torch.internals import udfs
 from pathway_tpu_torch.internals.expression import ColumnExpression
 from pathway_tpu_torch.models.tokenizer import HashTokenizer
@@ -234,6 +244,7 @@ class TorchEmbedder(BaseEmbedder):
         self._finalizer = weakref.finalize(
             self, self._plane.drop_program, self._encode.name
         )
+        _obs.maybe_enable_from_env()  # the plane's switch holds outside pw.run too
 
     @property
     def dispatches(self) -> int:
@@ -249,15 +260,40 @@ class TorchEmbedder(BaseEmbedder):
         return self._encode(ids_t, mask_t, bucket=tuple(ids_t.shape))
 
     def _encode_batch(self, texts: list[str]) -> list[np.ndarray]:
-        ids, mask = self.tokenizer.batch([t or "." for t in texts])
-        # rows and sequence up to the plane's power-of-two buckets
-        (ids, mask), _rows = self._plane.pad_rows([ids, mask], ids.shape[0])
-        seq = ids.shape[1]
-        bucket = bucket_len(seq, self.config.max_len)
-        if bucket != seq:
-            ids = np.pad(ids, ((0, 0), (0, bucket - seq)))
-            mask = np.pad(mask, ((0, 0), (0, bucket - seq)))
-        out = self.encode_tokens(ids, mask).cpu().numpy()
+        with _spans.span("embed.batch", leaf=False):
+            with _spans.span("embed.tokenize") as tokenize:
+                ids, mask = self.tokenizer.batch([t or "." for t in texts])
+            with _spans.span("embed.pad") as pad:
+                # rows and sequence up to the plane's power-of-two buckets
+                (ids, mask), _rows = self._plane.pad_rows([ids, mask], ids.shape[0])
+                seq = ids.shape[1]
+                bucket = bucket_len(seq, self.config.max_len)
+                if bucket != seq:
+                    ids = np.pad(ids, ((0, 0), (0, bucket - seq)))
+                    mask = np.pad(mask, ((0, 0), (0, bucket - seq)))
+            with _spans.span("embed.upload") as upload:
+                ids_t = torch.as_tensor(ids).to(self.device, torch.long)
+                mask_t = torch.as_tensor(mask).to(self.device, torch.int32)
+            with _spans.span("embed.encode") as encode:
+                out = self.encode_tokens(ids_t, mask_t)
+            with _spans.span("embed.readback") as readback:
+                out = out.cpu().numpy()
+        phases = (tokenize, pad, upload, encode, readback)
+        plane = _obs.PLANE
+        if plane is not None and all(sp.id for sp in phases):
+            m = plane.metrics
+            real = int(mask.sum())  # the padding adds zeros
+            for sp in phases:
+                m.counter(
+                    "pathway_embed_seconds_total", {"phase": sp.name[len("embed."):]},
+                    (sp.end_ns - sp.start_ns) / 1e9,
+                    help="host seconds of TorchEmbedder batches by phase",
+                )
+            for kind, n in (("real", real), ("padded", ids.size - real)):
+                m.counter(
+                    "pathway_embed_tokens_total", {"kind": kind}, n,
+                    help="token positions TorchEmbedder encoded: real tokens and padding",
+                )
         return [out[i] for i in range(len(texts))]
 
     async def __wrapped__(self, input: str, **kwargs: Any) -> np.ndarray:

@@ -305,6 +305,12 @@ class TorchLMChat(BaseChat):
             self._plane.restore(cache_key, cache)
         return [" ".join(f"<{int(t)}>" for t in out[i, bucket:]) for i in range(len(rows))]
 
+    def batcher_stats(self) -> dict[str, float] | None:
+        """A copy of the continuous batcher's counters (``stats``: counts
+        and host seconds, each a number; ``serving/continuous_batching.py``),
+        or None on the wave-aligned path."""
+        return dict(self._cb.stats) if self._cb is not None else None
+
     async def __wrapped__(self, messages: Any, **kwargs: Any) -> str:
         import asyncio
 
