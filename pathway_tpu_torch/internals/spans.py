@@ -9,7 +9,10 @@ that is no call on one thread) and a few attributes. The continuous
 batcher records ``cb.request`` (with ``cb.queue``), ``cb.prefill`` (with
 ``.launch``, ``.sync``) and ``cb.step`` (with ``.upload``, ``.launch``,
 ``.sync``); ``TorchEmbedder`` records ``embed.batch`` over
-``embed.tokenize``, ``.pad``, ``.upload``, ``.encode`` and ``.readback``.
+``embed.tokenize``, ``.pad``, ``.upload``, ``.encode`` and ``.readback``;
+the DeepSeek-V3 family (``models/deepseek.py``) records ``lm.mla`` and
+``lm.moe`` around each layer's attention and feed-forward, inside the
+batcher's ``cb.step.launch`` and ``cb.prefill.launch``.
 
 Spans follow the plane's switch (``observability.PLANE``): with the plane
 on they go to a bounded ring of their own beside its flight recorder,

@@ -215,10 +215,10 @@ def count_params(params: Params) -> int:
 # ----------------------------------------------------------------- forward
 
 
-def _rmsnorm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+def _rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     x32 = x.float()
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
-    return (x32 * torch.rsqrt(var + 1e-6) * scale).to(x.dtype)
+    return (x32 * torch.rsqrt(var + eps) * scale).to(x.dtype)
 
 
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

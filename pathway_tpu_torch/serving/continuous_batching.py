@@ -7,16 +7,22 @@ generation per wave: a request that arrives just after the dispatch
 waits for the entire wave to drain. Continuous batching replaces that
 with a slot scheduler:
 
-* the KV cache is one persistent multi-row tensor (a device-plane lease,
+* the cache is one persistent multi-row tensor (a device-plane lease,
   ``init_kv_cache(cfg, n_slots)``); each row is a slot of a
   :class:`~pathway_tpu_torch.engine.device_plane.SlotPool`;
 * a new request is admitted at the next step boundary: a b=1 prefill
-  (``models/transformer.prefill_into_slot``) writes its prompt K/V into a
-  free cache row while the neighbours stay mid-generation;
+  (``prefill_into_slot``) writes its prompt's cache rows into a free cache
+  row while the neighbours stay mid-generation;
 * every decode step advances all occupied slots by one token in one call
-  with per-row positions (``models/transformer.decode_step_slots``);
+  with per-row positions (``decode_step_slots``);
 * a request that finishes releases its slot at the step boundary, and
   the same boundary re-fills the row from the admission queue.
+
+The three functions are those of the config's model family
+(``models.family_of``), chosen once at construction: the GPT-2-style
+``models/transformer.py`` with its head-major KV cache, or the DeepSeek-V3
+``models/deepseek.py`` with its latent cache (whose family leaves the
+mesh-spanning pool out).
 
 Both calls go through the device plane's programs, whose shape ledger
 shows that a request joining mid-generation adds no new shape: the step
@@ -52,7 +58,13 @@ decode thread publishes a step's or a prefill's counters in one
 ``dict.update``, so a copy of ``stats`` taken on another thread holds
 whole ones. ``loop_seconds`` is the decode thread's time in its loop,
 ``queue_seconds`` each request's wait from ``submit`` to its prefill,
-``submit_seconds`` the callers' time in ``submit``. With the
+``submit_seconds`` the callers' time in ``submit``. A family that counts
+its experts (``STEP_COUNTERS`` of ``models/deepseek.py``) adds, summed
+over decode steps, ``moe_assignments`` (token-expert choices),
+``moe_experts_hit`` (layer-expert pairs with a token) and ``moe_max_load``
+(the busiest expert's tokens, summed over layers), which come back with
+the step's tokens in the same copy, and ``latent_positions`` (the real
+positions the steps' rows read, counted on the host). With the
 observability plane on, the batcher also records spans (``cb.request``
 with ``cb.queue``; ``cb.prefill``; ``cb.step`` with ``.upload``,
 ``.launch``, ``.sync``; ``internals/spans.py``) and the histograms
@@ -78,7 +90,7 @@ import torch
 from pathway_tpu_torch.engine.device_plane import get_device_plane
 from pathway_tpu_torch.internals import observability as _obs
 from pathway_tpu_torch.internals import spans as _spans
-from pathway_tpu_torch.models import transformer
+from pathway_tpu_torch.models import family_of, transformer
 from pathway_tpu_torch.parallel import spmd
 from pathway_tpu_torch.parallel.mesh import P, Sharded, default_mesh
 from pathway_tpu_torch.xpacks.llm.embedders import pad_left_rows
@@ -138,7 +150,7 @@ class ContinuousBatcher:
         self,
         *,
         params: Any,
-        cfg: transformer.TransformerConfig,
+        cfg: Any,
         tokenizer: Any,
         n_steps: int,
         n_slots: int = 8,
@@ -152,9 +164,16 @@ class ContinuousBatcher:
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.n_steps = n_steps
+        family = self._family = family_of(cfg)
+        # the expert counters a step reads back with its tokens
+        self._counters = getattr(family, "STEP_COUNTERS", ())
         # mesh-spanning pool: n_slots per shard (module docstring)
         self.mesh = None
         if mesh_span if mesh_span is not None else mesh_slots_on():
+            if family is not transformer:
+                raise NotImplementedError(
+                    f"the mesh-spanning slot pool serves the GPT-2-style family, not {type(cfg).__name__}"
+                )
             mesh = default_mesh(("data",))
             if mesh.size > 1:
                 self.mesh = mesh
@@ -175,9 +194,9 @@ class ContinuousBatcher:
         self.name = name or self._plane.unique_name("cb")
         self.pool = self._plane.slot_pool(f"{self.name}/slots", n_slots)
         self._prefill = self._plane.program(
-            f"{self.name}/prefill", functools.partial(transformer.prefill_into_slot, cfg=cfg)
+            f"{self.name}/prefill", functools.partial(family.prefill_into_slot, cfg=cfg)
         )
-        step = functools.partial(transformer.decode_step_slots, cfg=cfg)
+        step = functools.partial(family.decode_step_slots, cfg=cfg)
         if self.mesh is not None:
             step = self._mesh_step_fn(step)
         self._step = self._plane.program(f"{self.name}/step", step)
@@ -200,6 +219,8 @@ class ContinuousBatcher:
             "prefill_tokens": 0, "prefill_positions": 0, "submit_seconds": 0.0,
             **dict.fromkeys(self._ns, 0.0),
         }
+        if self._counters:
+            self.stats.update(dict.fromkeys((*self._counters, "latent_positions"), 0))
         self._labels = {"pool": self.pool.name}
         _obs.maybe_enable_from_env()  # the plane's switch holds outside pw.run too
 
@@ -290,7 +311,7 @@ class ContinuousBatcher:
         or with a mesh one block of `shard_slots` rows on each shard's
         device (a dict of Sharded)."""
         if self.mesh is None:
-            return transformer.init_kv_cache(self.cfg, self.n_slots, self.device)
+            return self._family.init_kv_cache(self.cfg, self.n_slots, self.device)
         shards = [transformer.init_kv_cache(self.cfg, self.shard_slots, self.mesh.device(i))
                   for i in range(self.mesh.size)]
         full = (self.cfg.n_layers, self.n_slots, self.cfg.n_heads, self.cfg.max_len, self.cfg.head_dim)
@@ -369,12 +390,20 @@ class ContinuousBatcher:
                     tok, pos, pad = torch.from_numpy(vec).to(self.device).unbind(0)
                 with _spans.span("cb.step.launch"):
                     nxt, _ = self._step(self.params, cache, tok, pos, pad, bucket=self.n_slots)
+                    if self._counters:  # the step's counters ride with its tokens
+                        nxt = torch.cat((nxt, cache["counts"]))
                 t1 = time.perf_counter_ns()
                 with _spans.span("cb.step.sync"):
                     nxt = nxt.tolist()  # the step's one wait for the device
                 t2 = time.perf_counter_ns()
+                counts = {"decode_steps": 1}
+                if self._counters:
+                    counts.update(zip(self._counters, nxt[self.n_slots:]))
+                    counts["latent_positions"] = sum(r.length + r.steps_done + 1 for r in batch.values())
+                    if sp.id:
+                        sp.set(**counts)
             mark = self._count(
-                mark, t2, {"decode_steps": 1},
+                mark, t2, counts,
                 step_seconds=t2 - t0, step_launch_seconds=t1 - t0, step_sync_seconds=t2 - t1,
             )
             plane = _obs.PLANE

@@ -23,11 +23,12 @@ from pathway_tpu_torch.engine.device_plane import DevicePlane, get_device_plane
 from pathway_tpu_torch.internals import udfs
 from pathway_tpu_torch.internals.expression import ColumnExpression
 from pathway_tpu_torch.internals.json import Json
+from pathway_tpu_torch.models import build_lm, family_of, transformer
+from pathway_tpu_torch.models.deepseek import DeepseekConfig
 from pathway_tpu_torch.models.tokenizer import HashTokenizer
 from pathway_tpu_torch.models.transformer import (
     Params,
     TransformerConfig,
-    TransformerLM,
     generate_serving,
     init_kv_cache,
     lm_config,
@@ -203,7 +204,10 @@ class HFPipelineChat(BaseChat):
 
 
 class TorchLMChat(BaseChat):
-    """Generation on the card (or on `device`) with the port's causal LM.
+    """Generation on the card (or on `device`) with one of the port's
+    causal LMs, chosen by the config's type (``models.family_of``): the
+    GPT-2-style ``TransformerConfig`` (the default, ``lm_config``) or the
+    DeepSeek-V3 ``DeepseekConfig`` (latent attention and routed experts).
 
     Pass `params` (e.g. from ``models.convert.params_from_numpy``) for a
     given model; without them the weights are random from `generator`
@@ -214,12 +218,14 @@ class TorchLMChat(BaseChat):
     scheduler (``serving/continuous_batching.py``). ``PATHWAY_CONTINUOUS_BATCH=0``,
     ``continuous_batching=False`` or any ``temperature > 0`` use the
     wave-aligned coalescer instead: one left-padded ``generate_serving``
-    per wave, the same tokens per request at temperature 0.
+    per wave, the same tokens per request at temperature 0. The
+    DeepSeek-V3 family serves through the slot scheduler only: it raises
+    ``NotImplementedError`` for the wave-aligned path and for sampling.
     """
 
     def __init__(
         self,
-        config: TransformerConfig | None = None,
+        config: TransformerConfig | DeepseekConfig | None = None,
         params: Params | None = None,
         tokenizer: Any = None,
         max_new_tokens: int = 64,
@@ -241,7 +247,20 @@ class TorchLMChat(BaseChat):
                 f"max_new_tokens ({max_new_tokens}) must be smaller than the "
                 f"model context length ({self.config.max_len})"
             )
-        self.model = TransformerLM(self.config, params, device=device, generator=generator)
+        # imported here: the serving package imports this xpack's helpers
+        from pathway_tpu_torch.serving.continuous_batching import (
+            ContinuousBatcher,
+            continuous_batching_on,
+        )
+
+        if continuous_batching is None:
+            continuous_batching = continuous_batching_on()
+        if family_of(self.config) is not transformer and not (continuous_batching and temperature == 0.0):
+            raise NotImplementedError(
+                f"{type(self.config).__name__} serves greedy answers through continuous batching "
+                "only (no wave-aligned path, no sampling)"
+            )
+        self.model = build_lm(self.config, params, device=device, generator=generator)
         self.params = self.model.params
         self.device = self.model.device
         self.tokenizer = tokenizer or HashTokenizer(
@@ -261,14 +280,6 @@ class TorchLMChat(BaseChat):
             ),
         )
         self._batcher = self._plane.coalescer(self._generate_batch, max_batch=max_batch)
-        # imported here: the serving package imports this xpack's helpers
-        from pathway_tpu_torch.serving.continuous_batching import (
-            ContinuousBatcher,
-            continuous_batching_on,
-        )
-
-        if continuous_batching is None:
-            continuous_batching = continuous_batching_on()
         self._cb: ContinuousBatcher | None = None
         if continuous_batching and temperature == 0.0:
             self._cb = ContinuousBatcher(
