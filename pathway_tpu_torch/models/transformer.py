@@ -620,6 +620,8 @@ def prefill(
     cache: Params,
     cfg: TransformerConfig,
     prompt_mask: torch.Tensor | None = None,
+    *,
+    slot: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, Params]:
     """One batched causal forward over the whole prompt, writing every
     layer's K/V into positions 0..p-1 of the cache in place. Returns
@@ -630,6 +632,12 @@ def prefill(
     token logits): real tokens take positions 0..len-1 via the mask
     cumsum and pad keys are masked out, so a padded row's outputs equal
     an unpadded single-prompt run.
+
+    With `slot` (a one-element int64 tensor on the cache's device) the one
+    prompt row goes to cache row `slot` of a multi-row cache: its K/V are
+    written by ``index_copy_`` and read back by ``index_select``, the same
+    values a one-row view of the cache would hold, with no host read of
+    the slot (:func:`prefill_slot`).
     """
     b, p = prompt_ids.shape
     if p > cfg.max_len:
@@ -643,11 +651,17 @@ def prefill(
         pos_idx = torch.clamp(torch.cumsum(prompt_mask, dim=1) - 1, min=0)
         x = x + params["pos_embed"].to(dt)[pos_idx]
         mask = _build_mask(prompt_mask, causal=True)
+    at = None if slot is None else slot.reshape(1)
     for li, block in enumerate(params["blocks"]):
         q, k, v = _qkv_heads(_rmsnorm(x, block["ln1_scale"]), block, cfg)
         keys, vals = cache["k"][li, :, :, :p], cache["v"][li, :, :, :p]
-        keys.copy_(k)
-        vals.copy_(v)
+        if at is None:
+            keys.copy_(k)
+            vals.copy_(v)
+        else:
+            keys.index_copy_(0, at, k)
+            vals.index_copy_(0, at, v)
+            keys, vals = keys.index_select(0, at), vals.index_select(0, at)
         ctx = _attend(q, keys, vals, mask, cfg)
         x = x + torch.matmul(ctx, block["o"].to(dt))
         x = x + _ffn(_rmsnorm(x, block["ln2_scale"]), block, cfg)
@@ -741,13 +755,33 @@ def prefill_into_slot(
     reaches an output. `slot` may be a 0-d CPU tensor, so that a
     program's shape ledger sees one signature for every slot, as the JAX
     package traces it. Returns (first decoded token [1], cache); argmax
-    decoding, equal per row to the temperature-0 `generate_serving`."""
+    decoding, equal per row to the temperature-0 `generate_serving`.
+    The work is :func:`prefill_slot`'s, run eagerly."""
     slot = int(slot)
     if not 0 <= slot < cache["k"].shape[1]:
         raise ValueError(f"slot {slot} is outside the cache's {cache['k'].shape[1]} rows")
-    rows = {n: c[:, slot:slot + 1] for n, c in cache.items()}
-    lg, _ = prefill(params, prompt_ids.long(), rows, cfg, prompt_mask)
-    return torch.argmax(lg, dim=-1), cache
+    at = torch.tensor(slot, device=cache["k"].device)
+    return prefill_slot(params, prompt_ids, prompt_mask, cache, at, cfg), cache
+
+
+def prefill_slot(
+    params: Params,
+    prompt_ids: torch.Tensor,  # [1, P] LEFT-padded (pad_left_rows convention)
+    prompt_mask: torch.Tensor,  # [1, P] 1/0
+    cache: Params,  # multi-slot serving cache (init_kv_cache shape)
+    slot: torch.Tensor,  # 0-d int64 on the cache's device: the request's cache row
+    cfg: TransformerConfig,
+) -> torch.Tensor:
+    """:func:`prefill_into_slot` in a form a CUDA graph can capture: the
+    slot is a device tensor, its K/V for positions 0..P-1 go through index
+    operations on the whole cache (not a view sliced at a host index), and
+    the first token [1] stays on the device. Nothing reads the device
+    back, branches on a tensor's value or allocates by one, so one graph
+    captured at width P serves every slot (the batcher's prefill graphs,
+    ``serving/continuous_batching.py``). The slot must lie inside the
+    cache: on the card an index outside it is a device-side fault."""
+    lg, _ = prefill(params, prompt_ids.long(), cache, cfg, prompt_mask, slot=slot)
+    return torch.argmax(lg, dim=-1)
 
 
 def decode_step_slots(

@@ -48,6 +48,17 @@ cannot be built raises.
 Decoding here is greedy (argmax); sampled generation keeps the
 wave-aligned path.
 
+**Prefill graphs.** A prefill of the GPT-2-style family is some 35 small
+kernels a layer, whose launches from Python take far longer than the card
+takes to run them. Where the cache is on a CUDA device, the pool is not
+mesh-spanning and the family provides a capturable slot prefill
+(``transformer.prefill_slot``), the prefill program is a
+:class:`PrefillGraphs`: one CUDA graph captured on the first prefill of
+each prompt width (the power-of-two buckets of ``pad_left_rows``) and
+replayed for every later one, into any slot. The DeepSeek family, whose
+prefill computes each prompt's real tokens at a width of its own, the
+mesh-spanning pool and every CPU run keep the eager prefill.
+
 **Counters** (``stats``, always on: a few clock reads a step, a prefill
 and a request). A step's host time splits at the return of the step
 program into ``step_launch_seconds`` (upload and launches) and
@@ -58,7 +69,10 @@ decode thread publishes a step's or a prefill's counters in one
 ``dict.update``, so a copy of ``stats`` taken on another thread holds
 whole ones. ``loop_seconds`` is the decode thread's time in its loop,
 ``queue_seconds`` each request's wait from ``submit`` to its prefill,
-``submit_seconds`` the callers' time in ``submit``. A family that counts
+``submit_seconds`` the callers' time in ``submit``. ``prefill_replays``
+counts the prefills served by replaying a captured graph and
+``prefill_captures`` the captures (each also served its own request);
+both stay 0 on the eager prefill. A family that counts
 its experts (``STEP_COUNTERS`` of ``models/deepseek.py``) adds, summed
 over decode steps, ``moe_assignments`` (token-expert choices),
 ``moe_experts_hit`` (layer-expert pairs with a token) and ``moe_max_load``
@@ -70,7 +84,9 @@ with ``cb.queue``; ``cb.prefill``; ``cb.step`` with ``.upload``,
 ``.launch``, ``.sync``; ``internals/spans.py``) and the histograms
 ``pathway_serving_queue_wait_seconds``,
 ``pathway_serving_first_token_seconds`` and
-``pathway_serving_step_seconds{phase}`` for operators.
+``pathway_serving_step_seconds{phase}`` for operators, and counts
+``pathway_serving_prefill_graph_replays_total``; a ``cb.prefill`` span's
+``graphed`` attribute says whether a replayed graph served it.
 """
 
 from __future__ import annotations
@@ -134,6 +150,69 @@ class _Request:
         self.width = 0  # physical prompt width (the seq bucket)
 
 
+class PrefillGraphs:
+    """A family's capturable slot prefill (``transformer.prefill_slot``),
+    replayed from one CUDA graph per prompt width and cache buffer.
+
+    Called as ``prefill_into_slot`` is, ``(params, ids, mask, cache, slot)``
+    with `slot` a host integer or 0-d CPU tensor, it returns (first token
+    [1] on the device, cache). The first call of a width runs the prefill
+    eagerly on a side stream, which warms it up and serves that request,
+    then captures it over static buffers of ids, mask and slot; every
+    later call copies its inputs into those buffers and replays the graph.
+    A graph holds the addresses of the cache and the parameters it was
+    captured on. The parameters are the batcher's own for its life; the
+    cache is leased anew by each decode thread, so the key holds the
+    cache's buffers: another buffer captures anew, and the graphs of the
+    old one are dropped. The
+    batcher's graphs share one private memory pool, since its decode thread
+    runs one prefill at a time, and its first token is read before the next
+    replay. ``last`` says how the latest call ran: ``"capture"`` or
+    ``"replay"``.
+    """
+
+    def __init__(self, fn: Any):
+        self._fn = fn  # (params, ids, mask, cache, slot tensor) -> first token [1]
+        self._graphs: dict[tuple, tuple] = {}  # key -> (graph, ids, mask, slot, token)
+        self._pool: Any = None
+        self.last: str | None = None
+
+    def __call__(self, params: Any, ids: torch.Tensor, mask: torch.Tensor, cache: Any, slot: Any):
+        key = (ids.shape[1], *(t.data_ptr() for t in cache.values()))
+        with torch.cuda.device(ids.device):
+            held = self._graphs.get(key)
+            if held is None:
+                self.last = "capture"
+                return self._capture(key, params, ids, mask, cache, int(slot)), cache
+            graph, s_ids, s_mask, s_slot, token = held
+            s_ids.copy_(ids)
+            s_mask.copy_(mask)
+            s_slot.fill_(int(slot))
+            graph.replay()
+            self.last = "replay"
+            return token, cache
+
+    def _capture(self, key: tuple, params: Any, ids, mask, cache: Any, slot: int) -> torch.Tensor:
+        # graphs over another cache buffer would write into a stale one;
+        # a pool whose graphs are all gone takes no new capture, so a new
+        # set of graphs starts a pool of its own
+        self._graphs = {k: g for k, g in self._graphs.items() if k[1:] == key[1:]}
+        if not self._graphs:
+            self._pool = torch.cuda.graph_pool_handle()
+        s_ids, s_mask = ids.clone(), mask.clone()
+        s_slot = torch.full((), slot, dtype=torch.int64, device=ids.device)
+        here, side = torch.cuda.current_stream(), torch.cuda.Stream()
+        side.wait_stream(here)
+        with torch.cuda.stream(side):
+            first = self._fn(params, s_ids, s_mask, cache, s_slot)
+        here.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._pool, stream=side, capture_error_mode="thread_local"):
+            token = self._fn(params, s_ids, s_mask, cache, s_slot)
+        self._graphs[key] = (graph, s_ids, s_mask, s_slot, token)
+        return first
+
+
 class ContinuousBatcher:
     """Slot-based decode scheduler over one leased multi-row KV cache.
 
@@ -193,9 +272,14 @@ class ContinuousBatcher:
         self._plane = plane or get_device_plane()
         self.name = name or self._plane.unique_name("cb")
         self.pool = self._plane.slot_pool(f"{self.name}/slots", n_slots)
-        self._prefill = self._plane.program(
-            f"{self.name}/prefill", functools.partial(family.prefill_into_slot, cfg=cfg)
-        )
+        prefill = functools.partial(family.prefill_into_slot, cfg=cfg)
+        # a family with a capturable slot prefill, on the card and off the
+        # mesh, replays it from CUDA graphs (module docstring)
+        capturable = getattr(family, "prefill_slot", None)
+        self._graphs = None
+        if capturable is not None and self.mesh is None and self.device.type == "cuda":
+            prefill = self._graphs = PrefillGraphs(functools.partial(capturable, cfg=cfg))
+        self._prefill = self._plane.program(f"{self.name}/prefill", prefill)
         step = functools.partial(family.decode_step_slots, cfg=cfg)
         if self.mesh is not None:
             step = self._mesh_step_fn(step)
@@ -216,7 +300,8 @@ class ContinuousBatcher:
         # counts and host seconds (module docstring); every value a number
         self.stats = {
             "submitted": 0, "completed": 0, "decode_steps": 0, "prefills": 0, "max_queue": 0,
-            "prefill_tokens": 0, "prefill_positions": 0, "submit_seconds": 0.0,
+            "prefill_tokens": 0, "prefill_positions": 0, "prefill_replays": 0,
+            "prefill_captures": 0, "submit_seconds": 0.0,
             **dict.fromkeys(self._ns, 0.0),
         }
         if self._counters:
@@ -454,11 +539,15 @@ class ContinuousBatcher:
             with _spans.span("cb.prefill.sync"):
                 req.token = int(first[0])
             t2 = req.first_ns = time.perf_counter_ns()
+            how = self._graphs.last if self._graphs is not None else None
             if sp.id:
-                sp.set(slot=slot, tokens=req.length, positions=req.width)
+                sp.set(slot=slot, tokens=req.length, positions=req.width, graphed=how == "replay")
         mark = self._count(
             mark, t2,
-            {"prefills": 1, "prefill_tokens": req.length, "prefill_positions": req.width},
+            {
+                "prefills": 1, "prefill_tokens": req.length, "prefill_positions": req.width,
+                "prefill_replays": int(how == "replay"), "prefill_captures": int(how == "capture"),
+            },
             prefill_seconds=t2 - t0, prefill_launch_seconds=t1 - t0, prefill_sync_seconds=t2 - t1,
             queue_seconds=t0 - req.queued_ns,
         )
@@ -474,6 +563,11 @@ class ContinuousBatcher:
                 help="submit to a request's first token",
             )
             self._observe_phases(m, "prefill", t1 - t0, t2 - t1)
+            if how == "replay":
+                m.counter(
+                    "pathway_serving_prefill_graph_replays_total", self._labels,
+                    help="prefills served by replaying a captured CUDA graph",
+                )
             _spans.add_span("cb.queue", req.queued_ns, t0, parent=req.span, request=req.id)
         req.tokens.append(req.token)
         if len(req.tokens) >= self.n_steps:  # n_steps == 1
