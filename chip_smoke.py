@@ -80,13 +80,17 @@ import sys
 import time
 from pathlib import Path
 
+from benchmark.roofline import (  # the benchmark's peaks and timers, one yardstick for both
+    BF16_FLOPS,
+    F32_FLOPS,
+    HBM_BYTES_PER_S,
+    attention_bound,
+    cuda_ms,
+    percentile_ms,
+)
+
 ROOT = Path(__file__).resolve().parent
 
-# NVIDIA H100 SXM data sheet: HBM3 rate, dense bf16 tensor-core rate and
-# the f32 rate outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOPS = 989e12
-F32_FLOPS = 67e12
 # exp2 on the special-function units: 16 results a clock an SM (CUDA C++
 # Programming Guide, arithmetic instruction throughput, compute capability
 # 9.0) x 132 SMs x the H100 SXM's 1980 MHz maximum boost clock; each
@@ -402,28 +406,6 @@ def gpu_name_and_power() -> str:
     return out.splitlines()[0]
 
 
-def cuda_ms(fn, reps: int, rounds: int = 3) -> float:
-    """Device time of one call: CUDA events around `reps` calls launched
-    back to back, over the count, after one warm-up call; the median of
-    `rounds` such runs. (Timing each call alone adds the host's launch
-    latency to a kernel of a tenth of a ms.)"""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(rounds):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    return statistics.median(times)
-
-
 def host_ms(fn, reps: int) -> float:
     """Median host time of one call that ends in a synchronize."""
     import torch
@@ -443,19 +425,6 @@ def exp_floor_ms(b: int, s: int, h: int) -> float:
     """Least time the SFU takes for the b*h*s*s exp2 of the scores, in ms;
     shown beside `attention_bound`, which it does not change."""
     return b * h * s * s / SFU_EXP2_PER_S * 1e3
-
-
-def attention_bound(b: int, s: int, d: int, h: int, dtype: str = "bf16") -> tuple[float, str, int, int]:
-    """Least time the card could take for the kernel's work, in ms: qkv
-    and the mask read once, ctx written once (2 or 4 bytes an element),
-    over the HBM rate; against 4*b*h*s*s*dh flops (q.k^T and p.v) over the
-    bf16 and f16 tensor-core rate, or the f32 rate at f32."""
-    esize = 4 if dtype == "f32" else 2
-    nbytes = b * s * 3 * d * esize + b * s * 4 + b * s * d * esize
-    flops = 4 * b * h * s * s * (d // h)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / (F32_FLOPS if dtype == "f32" else BF16_FLOPS)
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
-    return max(t_bytes, t_ops) * 1e3, bound_by, nbytes, flops
 
 
 # ------------------------------------------------------------ phase 1
@@ -2535,14 +2504,6 @@ GATEWAY_RUNGS = (
 GATEWAY_K = 4
 GATEWAY_RETRY_CAP_S = 0.25  # the loadgen's: a 429 waits out its Retry-After up to this
 GATEWAY_TIMEOUT_S = 30.0  # the loadgen's rest_connector timeout
-
-
-def percentile_ms(xs: list[float], p: float) -> float | None:
-    """scripts/serving_loadgen.py's nearest-rank percentile, of seconds, in ms."""
-    if not xs:
-        return None
-    xs = sorted(xs)
-    return 1e3 * xs[min(int(round(p / 100.0 * (len(xs) - 1))), len(xs) - 1)]
 
 
 async def closed_loop(url: str, clients: int, seconds: float, texts: list[str]) -> dict:

@@ -383,19 +383,10 @@ def prefill(
     prompt_mask: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, Params]:
     """One causal forward over the prompt [b, p], writing every layer's
-    latent rows into positions 0..p-1 of the cache in place (of one
-    left-padded row, its real positions only). Returns (last-position
-    logits [b, vocab] f32, cache). With `prompt_mask` the batch is
-    LEFT-padded, as ``transformer.prefill`` takes it."""
-    prompt_ids = prompt_ids.long()
-    start = 0
-    if prompt_mask is not None and prompt_ids.shape[0] == 1:
-        # one left-padded row (a slot's prefill): its real tokens alone,
-        # written from the first real position on; decode never reads the
-        # cache's pad positions
-        start = prompt_ids.shape[1] - int(prompt_mask.sum())
-        prompt_ids, prompt_mask = prompt_ids[:, start:], None
-    h = _prefill_hidden(params, prompt_ids, prompt_mask, cache, cfg, start)
+    latent rows into positions 0..p-1 of the cache in place. Returns
+    (last-position logits [b, vocab] f32, cache). With `prompt_mask` the
+    batch is LEFT-padded, as ``transformer.prefill`` takes it."""
+    h = _prefill_hidden(params, prompt_ids.long(), prompt_mask, cache, cfg)
     return _logits(h[:, -1], params, cfg), cache
 
 
@@ -458,14 +449,16 @@ def prefill_into_slot(
     cfg: DeepseekConfig,
 ) -> tuple[torch.Tensor, Params]:
     """Prefill ONE request into row `slot` of a multi-slot latent cache,
-    as ``transformer.prefill_into_slot``. Returns (first token [1],
-    cache); argmax."""
+    as ``transformer.prefill_into_slot``: the prompt's real tokens alone,
+    written from its first real position on, since decode never reads a
+    slot's pad positions. Returns (first token [1], cache); argmax."""
     slot = int(slot)
     if not 0 <= slot < cache["latent"].shape[1]:
         raise ValueError(f"slot {slot} is outside the cache's {cache['latent'].shape[1]} rows")
+    start = prompt_ids.shape[1] - int(prompt_mask.sum())
     rows = {"latent": cache["latent"][:, slot:slot + 1]}
-    lg, _ = prefill(params, prompt_ids.long(), rows, cfg, prompt_mask)
-    return torch.argmax(lg, dim=-1), cache
+    h = _prefill_hidden(params, prompt_ids.long()[:, start:], None, rows, cfg, start)
+    return torch.argmax(_logits(h[:, -1], params, cfg), dim=-1), cache
 
 
 def generate(
@@ -485,11 +478,9 @@ def generate(
     if p + n_steps > cfg.max_len:
         raise ValueError(f"prompt ({p}) + n_steps ({n_steps}) exceeds max_len ({cfg.max_len})")
     prompt_ids = prompt_ids.long()
-    if prompt_mask is None:
-        prompt_mask = torch.ones_like(prompt_ids)
     cache = init_kv_cache(cfg, b, prompt_ids.device)
     lg, cache = prefill(params, prompt_ids, cache, cfg, prompt_mask)
-    pad = p - prompt_mask.sum(dim=1)
+    pad = torch.zeros_like(prompt_ids[:, 0]) if prompt_mask is None else p - prompt_mask.sum(dim=1)
     toks = [torch.argmax(lg, dim=-1)]
     for i in range(n_steps - 1):
         pos = torch.full_like(pad, p + i)

@@ -562,6 +562,10 @@ def make_train_step(cfg: TransformerConfig, learning_rate: float = 1e-3):
 
 # ---------------------------------------------------------------- decoding
 
+# the counters a decode step leaves in the cache for the batcher to read
+# back with its tokens: none in this family (``deepseek.STEP_COUNTERS``)
+STEP_COUNTERS: tuple[str, ...] = ()
+
 
 def init_kv_cache(
     cfg: TransformerConfig, batch: int, device: str | torch.device | None = None
@@ -595,23 +599,8 @@ def decode_step(
     unpadded single-prompt run would produce."""
     if not 0 <= pos < cfg.max_len:
         raise ValueError(f"position {pos} is outside the cache (max_len={cfg.max_len})")
-    dt = cfg.dtype
-    x = params["tok_embed"].to(dt)[token][:, None, :]  # [b, 1, d]
-    j = torch.arange(cfg.max_len, device=token.device)
-    if pad_len is None:
-        x = x + params["pos_embed"].to(dt)[pos]
-        kmask = (j <= pos)[None, None, None, :]
-    else:
-        x = x + params["pos_embed"].to(dt)[pos - pad_len][:, None, :]
-        kmask = ((j[None, :] <= pos) & (j[None, :] >= pad_len[:, None]))[:, None, None, :]
-    for li, block in enumerate(params["blocks"]):
-        q, k, v = _qkv_heads(_rmsnorm(x, block["ln1_scale"]), block, cfg)
-        cache["k"][li, :, :, pos] = k[:, :, 0]
-        cache["v"][li, :, :, pos] = v[:, :, 0]
-        ctx = _attend(q, cache["k"][li], cache["v"][li], kmask, cfg)
-        x = x + torch.matmul(ctx, block["o"].to(dt))
-        x = x + _ffn(_rmsnorm(x, block["ln2_scale"]), block, cfg)
-    return _tied_logits(_rmsnorm(x, params["ln_f_scale"])[:, 0], params, cfg), cache
+    at = torch.full(token.shape, pos, dtype=torch.long, device=token.device)
+    return _decode(params, cache, token, at, torch.zeros_like(at) if pad_len is None else pad_len, cfg), cache
 
 
 def prefill(
@@ -784,6 +773,30 @@ def prefill_slot(
     return torch.argmax(lg, dim=-1)
 
 
+def _decode(
+    params: Params, cache: Params, token: torch.Tensor, pos: torch.Tensor, pad_len: torch.Tensor,
+    cfg: TransformerConfig,
+) -> torch.Tensor:
+    """Logits [b, vocab] f32 of one token a row: row i consumes token[i],
+    writes its K/V at pos[i] of its own cache row and attends over
+    [pad_len[i], pos[i]] of that row."""
+    b = token.shape[0]
+    dt = cfg.dtype
+    x = params["tok_embed"].to(dt)[token][:, None, :]
+    x = x + params["pos_embed"].to(dt)[pos - pad_len][:, None, :]
+    j = torch.arange(cfg.max_len, device=token.device)[None, :]
+    kmask = ((j <= pos[:, None]) & (j >= pad_len[:, None]))[:, None, None, :]
+    rows = torch.arange(b, device=token.device)
+    for li, block in enumerate(params["blocks"]):
+        q, k, v = _qkv_heads(_rmsnorm(x, block["ln1_scale"]), block, cfg)
+        cache["k"][li, rows, :, pos] = k[:, :, 0]
+        cache["v"][li, rows, :, pos] = v[:, :, 0]
+        ctx = _attend(q, cache["k"][li], cache["v"][li], kmask, cfg)
+        x = x + torch.matmul(ctx, block["o"].to(dt))
+        x = x + _ffn(_rmsnorm(x, block["ln2_scale"]), block, cfg)
+    return _tied_logits(_rmsnorm(x, params["ln_f_scale"])[:, 0], params, cfg)
+
+
 def decode_step_slots(
     params: Params,
     cache: Params,
@@ -803,22 +816,7 @@ def decode_step_slots(
     write is a device-side fault, where the JAX package drops it).
     Returns (next token [b], cache); argmax decoding, equal per row to
     the wave-aligned path."""
-    b = token.shape[0]
-    dt = cfg.dtype
-    x = params["tok_embed"].to(dt)[token][:, None, :]
-    x = x + params["pos_embed"].to(dt)[pos - pad_len][:, None, :]
-    j = torch.arange(cfg.max_len, device=token.device)[None, :]
-    kmask = ((j <= pos[:, None]) & (j >= pad_len[:, None]))[:, None, None, :]
-    rows = torch.arange(b, device=token.device)
-    for li, block in enumerate(params["blocks"]):
-        q, k, v = _qkv_heads(_rmsnorm(x, block["ln1_scale"]), block, cfg)
-        cache["k"][li, rows, :, pos] = k[:, :, 0]
-        cache["v"][li, rows, :, pos] = v[:, :, 0]
-        ctx = _attend(q, cache["k"][li], cache["v"][li], kmask, cfg)
-        x = x + torch.matmul(ctx, block["o"].to(dt))
-        x = x + _ffn(_rmsnorm(x, block["ln2_scale"]), block, cfg)
-    lg = _tied_logits(_rmsnorm(x, params["ln_f_scale"])[:, 0], params, cfg)
-    return torch.argmax(lg, dim=-1), cache
+    return torch.argmax(_decode(params, cache, token, pos, pad_len, cfg), dim=-1), cache
 
 
 class TransformerEncoder(nn.Module):

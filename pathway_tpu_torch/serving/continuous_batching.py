@@ -1,92 +1,32 @@
-"""Continuous batching for LLM decode: slot-based scheduling over one
+"""Continuous batching for LLM decode: a slot scheduler over one
 persistent KV cache.
 
-Counterpart of ``pathway_tpu/serving/continuous_batching.py``. The
-wave-aligned serving path (``TorchLMChat._generate_batch``) runs a whole
-generation per wave: a request that arrives just after the dispatch
-waits for the entire wave to drain. Continuous batching replaces that
-with a slot scheduler:
+Counterpart of ``pathway_tpu/serving/continuous_batching.py``.
 
-* the cache is one persistent multi-row tensor (a device-plane lease,
-  ``init_kv_cache(cfg, n_slots)``); each row is a slot of a
-  :class:`~pathway_tpu_torch.engine.device_plane.SlotPool`;
-* a new request is admitted at the next step boundary: a b=1 prefill
-  (``prefill_into_slot``) writes its prompt's cache rows into a free cache
-  row while the neighbours stay mid-generation;
-* every decode step advances all occupied slots by one token in one call
-  with per-row positions (``decode_step_slots``);
-* a request that finishes releases its slot at the step boundary, and
-  the same boundary re-fills the row from the admission queue.
+**The slot contract.** Each row of the cache (a device-plane lease of the
+family's ``init_kv_cache``) is a slot of a
+:class:`~pathway_tpu_torch.engine.device_plane.SlotPool`. A request joins
+at a step boundary: the family's ``prefill_into_slot`` writes its
+left-padded prompt into its slot's row while the other rows stay
+mid-generation. A decode step (``decode_step_slots``) advances every row
+one token at the row's own position, and a row reads only its own keys,
+from its first real position to its current one; a slot freed by a
+longer request keeps that request's keys past the next prompt, and no
+step reads them. So per request the tokens equal the wave-aligned path's
+(``PATHWAY_CONTINUOUS_BATCH=0``), and over a mesh (``mesh_span``) the
+single-device pool's. Decoding here is greedy; sampled generation keeps
+the wave-aligned path.
 
-The three functions are those of the config's model family
-(``models.family_of``), chosen once at construction: the GPT-2-style
-``models/transformer.py`` with its head-major KV cache, or the DeepSeek-V3
-``models/deepseek.py`` with its latent cache (whose family leaves the
-mesh-spanning pool out).
+**Counters.** ``stats`` is always on. The decode thread publishes each
+step's and each prefill's counts and nanoseconds in one ``dict.update``,
+so a copy of ``stats`` taken on another thread holds whole steps and
+prefills, and in it each phase's launch and sync sum to its total
+exactly.
 
-Both calls go through the device plane's programs, whose shape ledger
-shows that a request joining mid-generation adds no new shape: the step
-is one shape, prefill one shape per prompt bucket.
-
-``PATHWAY_CONTINUOUS_BATCH=0`` makes ``TorchLMChat`` use the wave-aligned
-path; per request the two give the same tokens, because
-``decode_step_slots`` is ``decode_step`` with the shared position made a
-per-row vector.
-
-**Mesh-spanning slot pools** (``mesh_span=True``, or
-``PATHWAY_MESH_SLOTS=1`` when it is None): the KV cache's slot axis is
-sharded over the ``data`` axis of ``parallel.mesh.default_mesh()`` (every
-CUDA device, or the shards ``PATHWAY_MESH_DEVICES`` names) and the pool
-grows to ``n_slots`` per shard. One scheduler drives every shard's
-slots: a prefill runs on the device of its slot's shard, and a decode
-step is one ``spmd.shard_map`` call in which each shard advances its own
-rows. Rows never read each other's slots, so per-request tokens equal
-the single-device pool's. A default mesh of one device keeps the
-single-device pool, as the JAX package does on one device; a mesh that
-cannot be built raises.
-
-Decoding here is greedy (argmax); sampled generation keeps the
-wave-aligned path.
-
-**Prefill graphs.** A prefill of the GPT-2-style family is some 35 small
-kernels a layer, whose launches from Python take far longer than the card
-takes to run them. Where the cache is on a CUDA device, the pool is not
-mesh-spanning and the family provides a capturable slot prefill
-(``transformer.prefill_slot``), the prefill program is a
-:class:`PrefillGraphs`: one CUDA graph captured on the first prefill of
-each prompt width (the power-of-two buckets of ``pad_left_rows``) and
-replayed for every later one, into any slot. The DeepSeek family, whose
-prefill computes each prompt's real tokens at a width of its own, the
-mesh-spanning pool and every CPU run keep the eager prefill.
-
-**Counters** (``stats``, always on: a few clock reads a step, a prefill
-and a request). A step's host time splits at the return of the step
-program into ``step_launch_seconds`` (upload and launches) and
-``step_sync_seconds`` (the token read-back: the host waits while the
-device finishes), and a prefill's likewise; each pair sums to
-``step_seconds`` or ``prefill_seconds`` exactly in nanoseconds, and the
-decode thread publishes a step's or a prefill's counters in one
-``dict.update``, so a copy of ``stats`` taken on another thread holds
-whole ones. ``loop_seconds`` is the decode thread's time in its loop,
-``queue_seconds`` each request's wait from ``submit`` to its prefill,
-``submit_seconds`` the callers' time in ``submit``. ``prefill_replays``
-counts the prefills served by replaying a captured graph and
-``prefill_captures`` the captures (each also served its own request);
-both stay 0 on the eager prefill. A family that counts
-its experts (``STEP_COUNTERS`` of ``models/deepseek.py``) adds, summed
-over decode steps, ``moe_assignments`` (token-expert choices),
-``moe_experts_hit`` (layer-expert pairs with a token) and ``moe_max_load``
-(the busiest expert's tokens, summed over layers), which come back with
-the step's tokens in the same copy, and ``latent_positions`` (the real
-positions the steps' rows read, counted on the host). With the
-observability plane on, the batcher also records spans (``cb.request``
-with ``cb.queue``; ``cb.prefill``; ``cb.step`` with ``.upload``,
-``.launch``, ``.sync``; ``internals/spans.py``) and the histograms
-``pathway_serving_queue_wait_seconds``,
-``pathway_serving_first_token_seconds`` and
-``pathway_serving_step_seconds{phase}`` for operators, and counts
-``pathway_serving_prefill_graph_replays_total``; a ``cb.prefill`` span's
-``graphed`` attribute says whether a replayed graph served it.
+**Prefill graphs.** A CUDA graph replays the addresses it was captured
+on, so :class:`PrefillGraphs` keys its graphs by the prompt width and the
+cache's buffers: a decode thread that leases another cache captures
+anew.
 """
 
 from __future__ import annotations
@@ -98,7 +38,7 @@ import threading
 import time
 from collections import deque
 from concurrent.futures import Future
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -213,6 +153,51 @@ class PrefillGraphs:
         return first
 
 
+class _MeshSlots:
+    """The rule of a mesh-spanning slot pool. The cache's slot axis is cut
+    over the ``data`` axis of the mesh: slot i is row i % shard_slots of
+    the block on shard i // shard_slots, and its prefill runs on that
+    shard's device with that shard's parameters. A decode step is one
+    ``spmd.shard_map`` call in which each shard advances its own rows."""
+
+    def __init__(self, family: Any, cfg: Any, params: Any, mesh: Any, shard_slots: int):
+        self.family, self.cfg, self.mesh, self.shard_slots = family, cfg, mesh, shard_slots
+        # the parameters on every shard's device (shards of one device
+        # share them), and each shard's own tree of them, built once
+        self.params = transformer.tree_map(lambda t: Sharded.from_global(t, mesh, P(), copy=False), params)
+        self.shard_params = [
+            transformer.tree_map(lambda t, i=i: t.shards[i], self.params) for i in range(mesh.size)
+        ]
+        rows = P("data")
+        self._mapped = spmd.shard_map(
+            lambda *args: family.decode_step_slots(*args, cfg)[0],
+            mesh, in_specs=(P(), P(None, "data"), rows, rows, rows), out_specs=rows,
+        )
+
+    def step(self, params: Any, cache: Any, tok, pos, pad):
+        """The family's ``decode_step_slots`` over the mesh, with each
+        shard's copy of the parameters in place of `params`: the next
+        tokens as one [n_slots] tensor, and the cache."""
+        return self._mapped(self.params, cache, tok, pos, pad), cache
+
+    def init_cache(self) -> dict:
+        """A block of `shard_slots` rows of the family's cache on each
+        shard's device, as one Sharded a cache tensor."""
+        mesh, cache = self.mesh, {}
+        blocks = [self.family.init_kv_cache(self.cfg, self.shard_slots, dev) for dev in mesh.devices.flat]
+        for name, t in blocks[0].items():
+            shape = (len(t), t.shape[1] * mesh.size, *t.shape[2:])
+            cache[name] = Sharded([b[name] for b in blocks], P(None, "data"), mesh, shape)
+        return cache
+
+    def locate(self, slot: int, cache: dict) -> tuple[Any, dict, Any, int]:
+        """Where `slot`'s prefill runs: (its shard's parameters, its
+        shard's cache block, that shard's device, its row in the block)."""
+        shard, row = divmod(slot, self.shard_slots)
+        block = {name: c.shards[shard] for name, c in cache.items()}
+        return self.shard_params[shard], block, self.mesh.device(shard), row
+
+
 class ContinuousBatcher:
     """Slot-based decode scheduler over one leased multi-row KV cache.
 
@@ -244,25 +229,19 @@ class ContinuousBatcher:
         self.tokenizer = tokenizer
         self.n_steps = n_steps
         family = self._family = family_of(cfg)
-        # the expert counters a step reads back with its tokens
-        self._counters = getattr(family, "STEP_COUNTERS", ())
-        # mesh-spanning pool: n_slots per shard (module docstring)
-        self.mesh = None
+        # the counters a step reads back with its tokens
+        self._counters = family.STEP_COUNTERS
+        self.mesh = self._shards = None
         if mesh_span if mesh_span is not None else mesh_slots_on():
             if family is not transformer:
                 raise NotImplementedError(
                     f"the mesh-spanning slot pool serves the GPT-2-style family, not {type(cfg).__name__}"
                 )
             mesh = default_mesh(("data",))
-            if mesh.size > 1:
+            if mesh.size > 1:  # one device keeps the single-device pool
                 self.mesh = mesh
-                self.shard_slots = n_slots
-                n_slots = n_slots * mesh.size
-                # the parameters on every shard's device (shards of one
-                # device share them)
-                self._mesh_params = transformer.tree_map(
-                    lambda t: Sharded.from_global(t, mesh, P(), copy=False), params
-                )
+                self._shards = _MeshSlots(family, cfg, params, mesh, n_slots)
+                n_slots *= mesh.size
         self.n_slots = n_slots
         # every write stays inside the cache: a prompt keeps its last
         # `budget` tokens, and its last decode write lands at
@@ -274,15 +253,15 @@ class ContinuousBatcher:
         self.pool = self._plane.slot_pool(f"{self.name}/slots", n_slots)
         prefill = functools.partial(family.prefill_into_slot, cfg=cfg)
         # a family with a capturable slot prefill, on the card and off the
-        # mesh, replays it from CUDA graphs (module docstring)
+        # mesh, replays it from CUDA graphs
         capturable = getattr(family, "prefill_slot", None)
         self._graphs = None
         if capturable is not None and self.mesh is None and self.device.type == "cuda":
             prefill = self._graphs = PrefillGraphs(functools.partial(capturable, cfg=cfg))
         self._prefill = self._plane.program(f"{self.name}/prefill", prefill)
         step = functools.partial(family.decode_step_slots, cfg=cfg)
-        if self.mesh is not None:
-            step = self._mesh_step_fn(step)
+        if self._shards is not None:
+            step = self._shards.step
         self._step = self._plane.program(f"{self.name}/step", step)
         self._cache_key = ("cb_kv_cache", self.name, n_slots)
         self._lock = threading.Lock()
@@ -297,7 +276,7 @@ class ContinuousBatcher:
             "prefill_launch_seconds", "prefill_sync_seconds", "loop_seconds", "queue_seconds",
         ), 0)
         self._submit_ns = 0
-        # counts and host seconds (module docstring); every value a number
+        # counts and host seconds; every value a number
         self.stats = {
             "submitted": 0, "completed": 0, "decode_steps": 0, "prefills": 0, "max_queue": 0,
             "prefill_tokens": 0, "prefill_positions": 0, "prefill_replays": 0,
@@ -376,34 +355,12 @@ class ContinuousBatcher:
 
     # ---------------------------------------------------------- decode loop
 
-    def _mesh_step_fn(self, step):
-        """The decode step over the mesh: each shard advances its own
-        cache rows with its rows of the step vectors; the next tokens
-        come back as one [n_slots] tensor."""
-        rows = P("data")
-        mapped = spmd.shard_map(
-            lambda params, cache, tok, pos, pad: step(params, cache, tok, pos, pad)[0],
-            self.mesh, in_specs=(P(), P(None, "data"), rows, rows, rows), out_specs=rows,
-        )
-
-        def run(params, cache, tok, pos, pad):
-            return mapped(self._mesh_params, cache, tok, pos, pad), cache
-
-        return run
-
     def _init_cache(self) -> Any:
-        """A fresh multi-slot cache: one tensor on the batcher's device,
-        or with a mesh one block of `shard_slots` rows on each shard's
-        device (a dict of Sharded)."""
-        if self.mesh is None:
-            return self._family.init_kv_cache(self.cfg, self.n_slots, self.device)
-        shards = [transformer.init_kv_cache(self.cfg, self.shard_slots, self.mesh.device(i))
-                  for i in range(self.mesh.size)]
-        full = (self.cfg.n_layers, self.n_slots, self.cfg.n_heads, self.cfg.max_len, self.cfg.head_dim)
-        return {
-            name: Sharded([c[name] for c in shards], P(None, "data"), self.mesh, full)
-            for name in ("k", "v")
-        }
+        """A fresh multi-slot cache: the family's on the batcher's
+        device, or over a mesh one block a shard."""
+        if self._shards is not None:
+            return self._shards.init_cache()
+        return self._family.init_kv_cache(self.cfg, self.n_slots, self.device)
 
     def _loop(self) -> None:
         cache = self._plane.lease(self._cache_key, self._init_cache)
@@ -467,38 +424,32 @@ class ContinuousBatcher:
             vec = np.zeros((3, self.n_slots), np.int64)
             for slot, req in batch.items():
                 vec[:, slot] = (req.token, req.width + req.steps_done, req.pad_len)
-            with _spans.span("cb.step", leaf=False) as sp:
+
+            def launch(tok, pos, pad):
+                nxt, _ = self._step(self.params, cache, tok, pos, pad, bucket=self.n_slots)
+                # the step's counters ride with its tokens
+                return torch.cat((nxt, cache["counts"])) if self._counters else nxt
+
+            def tally(nxt: list, t0: int, sp: Any) -> tuple[dict, dict]:
                 if sp.id:  # recording: the rows and their real keys before this step
                     sp.set(rows=len(batch), keys=sum(r.length + r.steps_done for r in batch.values()))
-                t0 = time.perf_counter_ns()
-                with _spans.span("cb.step.upload"):
-                    tok, pos, pad = torch.from_numpy(vec).to(self.device).unbind(0)
-                with _spans.span("cb.step.launch"):
-                    nxt, _ = self._step(self.params, cache, tok, pos, pad, bucket=self.n_slots)
-                    if self._counters:  # the step's counters ride with its tokens
-                        nxt = torch.cat((nxt, cache["counts"]))
-                t1 = time.perf_counter_ns()
-                with _spans.span("cb.step.sync"):
-                    nxt = nxt.tolist()  # the step's one wait for the device
-                t2 = time.perf_counter_ns()
                 counts = {"decode_steps": 1}
                 if self._counters:
                     counts.update(zip(self._counters, nxt[self.n_slots:]))
                     counts["latent_positions"] = sum(r.length + r.steps_done + 1 for r in batch.values())
-                    if sp.id:
-                        sp.set(**counts)
-            mark = self._count(
-                mark, t2, counts,
-                step_seconds=t2 - t0, step_launch_seconds=t1 - t0, step_sync_seconds=t2 - t1,
+                    sp.set(**counts)
+                return counts, {}
+
+            nxt, _, _, mark = self._timed(
+                "step", mark, launch, tally,
+                upload=lambda: torch.from_numpy(vec).to(self.device).unbind(0),
             )
             plane = _obs.PLANE
             if plane is not None:
-                m = plane.metrics
-                m.counter(
+                plane.metrics.counter(
                     "pathway_serving_decode_steps_total", self._labels,
                     help="continuous-batching decode steps dispatched",
                 )
-                self._observe_phases(m, "step", t1 - t0, t2 - t1)
             for slot, req in batch.items():
                 req.steps_done += 1
                 req.token = nxt[slot]
@@ -506,50 +457,75 @@ class ContinuousBatcher:
                 if len(req.tokens) >= self.n_steps:
                     self._finish(slot, req)
 
-    def _observe_phases(self, m: Any, what: str, launch_ns: int, sync_ns: int) -> None:
-        for phase, ns in (("launch", launch_ns), ("sync", sync_ns)):
-            m.observe(
-                "pathway_serving_step_seconds", ns / 1e9,
-                {"pool": self.pool.name, "phase": f"{what}_{phase}"},
-                help="host seconds of a decode step or prefill, launch and token read-back apart",
-            )
+    def _timed(
+        self, phase: str, mark: int, launch: Callable[..., torch.Tensor], tally: Callable,
+        upload: Callable[[], tuple] | None = None, **span: Any,
+    ) -> tuple[list, int, int, int]:
+        """One timed phase of the decode thread, ``step`` or ``prefill``,
+        in the span ``cb.<phase>``. Its launch is `upload` (in
+        ``cb.<phase>.upload``) and ``launch(*uploaded)`` (in ``.launch``),
+        up to the return of the phase's program; its sync reads the tensor
+        `launch` returns back as a list (in ``.sync``), the phase's one
+        wait for the device. ``tally(values, t0, span)`` gives the phase's
+        counts and any further nanoseconds by key, which ``_count``
+        publishes with the launch and sync split; with the plane on, the
+        split is observed in ``pathway_serving_step_seconds``. Returns
+        (values, t0, t2 the end of the sync, the next mark)."""
+        with _spans.span(f"cb.{phase}", leaf=False, **span) as sp:
+            t0 = time.perf_counter_ns()
+            uploaded = ()
+            if upload is not None:
+                with _spans.span(f"cb.{phase}.upload"):
+                    uploaded = upload()
+            with _spans.span(f"cb.{phase}.launch"):
+                out = launch(*uploaded)
+            t1 = time.perf_counter_ns()
+            with _spans.span(f"cb.{phase}.sync"):
+                out = out.tolist()
+            t2 = time.perf_counter_ns()
+            counts, ns = tally(out, t0, sp)
+        split = {"launch": t1 - t0, "sync": t2 - t1}
+        ns.update({f"{phase}_seconds": t2 - t0, **{f"{phase}_{k}_seconds": v for k, v in split.items()}})
+        mark = self._count(mark, t2, counts, **ns)
+        plane = _obs.PLANE
+        if plane is not None:
+            for part, part_ns in split.items():
+                plane.metrics.observe(
+                    "pathway_serving_step_seconds", part_ns / 1e9,
+                    {"pool": self.pool.name, "phase": f"{phase}_{part}"},
+                    help="host seconds of a decode step or prefill, launch and token read-back apart",
+                )
+        return out, t0, t2, mark
 
     def _admit(self, req: _Request, slot: int, cache: Any, mark: int) -> int:
         """Prefill one queued request into its freshly acquired slot (the
         join at a step boundary); returns the decode loop's next mark."""
-        with _spans.span("cb.prefill", parent=req.span, request=req.id, leaf=False) as sp:
-            t0 = time.perf_counter_ns()
-            with _spans.span("cb.prefill.launch"):
-                ids, mask = pad_left_rows([req.row], self.budget, n_rows=1)
-                req.width = ids.shape[1]
-                req.pad_len = req.width - req.length
-                params, dev, row = self.params, self.device, slot
-                if self.mesh is not None:
-                    # the prefill runs on the device of the slot's shard, into
-                    # that shard's block of the cache
-                    shard, row = divmod(slot, self.shard_slots)
-                    dev = self.mesh.device(shard)
-                    params = transformer.tree_map(lambda t: t.shards[shard], self._mesh_params)
-                    cache = {name: c.shards[shard] for name, c in cache.items()}
-                first, _ = self._prefill(
-                    params, torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev), cache,
-                    torch.tensor(row), bucket=(1, req.width),
-                )
-            t1 = time.perf_counter_ns()
-            with _spans.span("cb.prefill.sync"):
-                req.token = int(first[0])
-            t2 = req.first_ns = time.perf_counter_ns()
+        def launch():
+            ids, mask = pad_left_rows([req.row], self.budget, n_rows=1)
+            req.width = ids.shape[1]
+            req.pad_len = req.width - req.length
+            params, block, dev, row = self.params, cache, self.device, slot
+            if self._shards is not None:
+                params, block, dev, row = self._shards.locate(slot, cache)
+            first, _ = self._prefill(
+                params, torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev), block,
+                torch.tensor(row), bucket=(1, req.width),
+            )
+            return first
+
+        def tally(first: list, t0: int, sp: Any) -> tuple[dict, dict]:
+            req.token = first[0]
             how = self._graphs.last if self._graphs is not None else None
             if sp.id:
                 sp.set(slot=slot, tokens=req.length, positions=req.width, graphed=how == "replay")
-        mark = self._count(
-            mark, t2,
-            {
+            counts = {
                 "prefills": 1, "prefill_tokens": req.length, "prefill_positions": req.width,
                 "prefill_replays": int(how == "replay"), "prefill_captures": int(how == "capture"),
-            },
-            prefill_seconds=t2 - t0, prefill_launch_seconds=t1 - t0, prefill_sync_seconds=t2 - t1,
-            queue_seconds=t0 - req.queued_ns,
+            }
+            return counts, {"queue_seconds": t0 - req.queued_ns}
+
+        _, t0, req.first_ns, mark = self._timed(
+            "prefill", mark, launch, tally, parent=req.span, request=req.id
         )
         plane = _obs.PLANE
         if plane is not None:
@@ -559,11 +535,10 @@ class ContinuousBatcher:
                 help="a request's wait from submit to the start of its prefill",
             )
             m.observe(
-                "pathway_serving_first_token_seconds", (t2 - req.submit_ns) / 1e9, self._labels,
+                "pathway_serving_first_token_seconds", (req.first_ns - req.submit_ns) / 1e9, self._labels,
                 help="submit to a request's first token",
             )
-            self._observe_phases(m, "prefill", t1 - t0, t2 - t1)
-            if how == "replay":
+            if self._graphs is not None and self._graphs.last == "replay":
                 m.counter(
                     "pathway_serving_prefill_graph_replays_total", self._labels,
                     help="prefills served by replaying a captured CUDA graph",

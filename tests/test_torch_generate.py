@@ -156,6 +156,33 @@ def test_cache_is_head_major_and_written_in_place():
     assert not out["k"][:, :, :, 20:].any()
 
 
+@pytest.mark.parametrize("padded", [False, True])
+def test_wave_decode_step_is_the_slot_decode_at_one_position(padded):
+    """The wave path's ``decode_step`` is ``_decode`` with every row at
+    one position (pads zero without `pad_len`): the same f32 logits and
+    cache byte for byte, and ``decode_step_slots`` is their argmax."""
+    _jcfg, _jp, tcfg, tp = _pair(seed=13)
+    if padded:
+        ids, mask = pad_left_rows(_rows(13, 3, 2, 14), 16, n_rows=3)
+        pad = _t(ids.shape[1] - mask.sum(1)).long()
+        assert int(pad.min()) > 0
+    else:
+        ids, mask = np.random.default_rng(13).integers(2, 256, (3, 16)).astype(np.int32), None
+        pad = None
+    wave = ttfm.init_kv_cache(tcfg, 3, "cpu")
+    ttfm.prefill(tp, _t(ids).long(), wave, tcfg, None if mask is None else _t(mask))
+    merged, slots = ({k: v.clone() for k, v in wave.items()} for _ in range(2))
+    p, tok = ids.shape[1], torch.tensor([5, 9, 17])
+    for i in range(4):
+        got, _ = ttfm.decode_step(tp, wave, tok, p + i, tcfg, pad_len=pad)
+        pos, pads = torch.full((3,), p + i), torch.zeros(3, dtype=torch.long) if pad is None else pad
+        want = ttfm._decode(tp, merged, tok, pos, pads, tcfg)
+        nxt, _ = ttfm.decode_step_slots(tp, slots, tok, pos, pads, tcfg)
+        assert torch.equal(got, want) and torch.equal(nxt, want.argmax(-1))
+        assert all(torch.equal(wave[k], merged[k]) and torch.equal(wave[k], slots[k]) for k in wave)
+        tok = nxt
+
+
 # ---------------------------------------------------------------- generate
 
 

@@ -19,6 +19,7 @@ from pathway_tpu_torch.internals import observability as obs
 from pathway_tpu_torch.internals import spans
 from pathway_tpu_torch.models import DeepseekConfig, build_lm, deepseek, family_of, lm_config, transformer
 from pathway_tpu_torch.serving import ContinuousBatcher
+from pathway_tpu_torch.xpacks.llm.embedders import pad_left_rows
 from pathway_tpu_torch.xpacks.llm.llms import TorchLMChat
 
 MODEL = {
@@ -120,6 +121,40 @@ def test_absorbed_decode_matches_the_decompressed_path():
         pos = torch.tensor([0, ids.shape[1] + i])
         lg = deepseek._decode(params, cache, tok, pos, torch.tensor([0, pad]), cfg)
         assert torch.allclose(lg[1], full[20 + i], atol=1e-4), float((lg[1] - full[20 + i]).abs().max())
+
+
+def test_prefill_of_one_padded_row_is_its_row_in_a_batch():
+    """One left-padded row alone gives its logits inside a padded batch of
+    two, f32 to 1e-4: the prefill computes the batch it is given."""
+    cfg, params = _cfg(), _params(41)
+    rng = np.random.default_rng(41)
+    rows = [[1] + rng.integers(2, 512, size=n).tolist() for n in (13, 40)]
+    ids, mask = (torch.from_numpy(a) for a in pad_left_rows(rows, 64, n_rows=2))
+    one, _ = deepseek.prefill(params, ids[:1], deepseek.init_kv_cache(cfg, 1, "cpu"), cfg, mask[:1])
+    two, _ = deepseek.prefill(params, ids, deepseek.init_kv_cache(cfg, 2, "cpu"), cfg, mask)
+    assert int(mask[0].sum()) < ids.shape[1]  # the row is padded in both
+    assert torch.allclose(one[0], two[0], atol=1e-4), float((one[0] - two[0]).abs().max())
+
+
+def test_slot_prefill_writes_only_its_real_positions():
+    """``prefill_into_slot`` writes the real positions of its slot and no
+    other cell of the cache: the latent rows of the real tokens alone,
+    from the first real position on."""
+    cfg, params = _cfg(), _params(43)
+    row = [1] + np.random.default_rng(43).integers(2, 512, size=19).tolist()
+    pad = 11
+    cache = deepseek.init_kv_cache(cfg, 3, "cpu")
+    cache["latent"].fill_(float("nan"))
+    ids, mask = torch.tensor([[0] * pad + row]), torch.tensor([[0] * pad + [1] * len(row)])
+    first, _ = deepseek.prefill_into_slot(params, ids, mask, cache, 1, cfg)
+    written = ~cache["latent"].isnan().all(-1)  # [layers, slots, positions]
+    want = torch.zeros_like(written)
+    want[:, 1, pad:pad + len(row)] = True
+    assert torch.equal(written, want)
+    alone = deepseek.init_kv_cache(cfg, 1, "cpu")
+    lg, _ = deepseek.prefill(params, torch.tensor([row]), alone, cfg)
+    assert torch.equal(cache["latent"][:, 1, pad:pad + len(row)], alone["latent"][:, 0, :len(row)])
+    assert torch.equal(first, lg.argmax(-1))
 
 
 def test_router_matches_the_reference_and_its_bias_picks_but_never_weighs():

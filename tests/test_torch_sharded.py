@@ -208,9 +208,17 @@ def test_mesh_spanning_slot_pool_byte_identical():
 
     def drive(make, span, name):
         cb = make(span, name)
+        trees = {}  # a shard's cache block -> the parameter tree of each prefill into it
+        prefill = cb._prefill
+
+        def watched(params, ids, mask, cache, slot, **kw):
+            trees.setdefault(cache["k"].data_ptr(), []).append(params)
+            return prefill(params, ids, mask, cache, slot, **kw)
+
+        cb._prefill = watched
         try:
             futs = [cb.submit(p) for p in prompts]
-            return [f.result(timeout=120) for f in futs], cb.n_slots
+            return [f.result(timeout=120) for f in futs], cb.n_slots, trees
         finally:
             cb.close()
 
@@ -218,10 +226,14 @@ def test_mesh_spanning_slot_pool_byte_identical():
         return ContinuousBatcher(params=tparams, cfg=tcfg, tokenizer=_Tok(), n_steps=3, n_slots=2,
                                  name=name, mesh_span=span)
 
-    out_off, slots_off = drive(port, False, "cb-mesh-off")
-    out_on, slots_on = drive(port, True, "cb-mesh-on")
+    out_off, slots_off, _ = drive(port, False, "cb-mesh-off")
+    out_on, slots_on, trees = drive(port, True, "cb-mesh-on")
     assert (slots_off, slots_on) == (2, 2 * N_DEV)
     assert out_on == out_off
+    # each shard's parameter views are built once: every prefill into a
+    # shard is handed the same tree
+    assert len(trees) == N_DEV and sum(map(len, trees.values())) == len(prompts)
+    assert all(len(ts) >= 2 and all(t is ts[0] for t in ts) for ts in trees.values())
     jcb = JaxBatcher(params=jparams, cfg=jcfg, tokenizer=_Tok(), n_steps=3, n_slots=2,
                      name="cb-mesh-jax", mesh_span=True)
     try:

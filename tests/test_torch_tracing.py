@@ -22,7 +22,7 @@ import torch
 
 from pathway_tpu_torch.internals import observability as obs
 from pathway_tpu_torch.internals import spans
-from pathway_tpu_torch.models import embedder_config, lm_config
+from pathway_tpu_torch.models import DeepseekConfig, embedder_config, lm_config
 from pathway_tpu_torch.xpacks.llm.embedders import TorchEmbedder, bucket_len
 from pathway_tpu_torch.xpacks.llm.llms import TorchLMChat
 
@@ -173,6 +173,48 @@ def test_stats_are_numbers_with_window_differences():
     s1["decode_steps"] = -1  # a copy: the batcher's own is untouched
     assert chat.batcher_stats()["decode_steps"] >= 0
     assert _chat(continuous_batching=False).batcher_stats() is None
+
+
+# what the benchmark's metrics and README read of the batcher: its stats
+# keys, and with the plane on the spans of a request, each with the names
+# of its attributes
+STATS = {
+    "submitted", "completed", "decode_steps", "prefills", "max_queue", "prefill_tokens",
+    "prefill_positions", "prefill_replays", "prefill_captures", *TIMED,
+}
+SPANS = {
+    "cb.request": {"slot", "steps", "first_token_ms"}, "cb.queue": set(),
+    "cb.prefill": {"slot", "tokens", "positions", "graphed"}, "cb.prefill.launch": set(),
+    "cb.prefill.sync": set(), "cb.step": {"rows", "keys"}, "cb.step.upload": set(),
+    "cb.step.launch": set(), "cb.step.sync": set(),
+}
+EXPERTS = ("moe_assignments", "moe_experts_hit", "moe_max_load", "latent_positions")
+TINY_MLA_MOE = dict(
+    vocab_size=256, d_model=32, n_heads=2, n_layers=2, d_ff=64, max_len=64, kv_lora_rank=16,
+    qk_nope_head_dim=8, qk_rope_head_dim=8, v_head_dim=8, n_routed_experts=4, n_experts_per_tok=2,
+    n_shared_experts=1, moe_d_ff=16, first_k_dense=1,
+)
+
+
+@pytest.mark.parametrize("family", ["transformer", "deepseek"])
+def test_stats_keys_and_spans_of_a_request_are_pinned(family):
+    if family == "deepseek":
+        chat = TorchLMChat(
+            config=DeepseekConfig(dtype=torch.float32, **TINY_MLA_MOE), device="cpu", max_new_tokens=4,
+            decode_slots=2, continuous_batching=True,
+        )
+        stats, spans_of = STATS | set(EXPERTS), {
+            **SPANS, "cb.step": SPANS["cb.step"] | {"decode_steps", *EXPERTS}, "lm.mla": set(), "lm.moe": set(),
+        }
+    else:
+        chat, stats, spans_of = _chat(), STATS, SPANS
+    obs.enable()
+    _ask_all(chat, PROMPTS[3:4])
+    assert set(chat.batcher_stats()) == stats
+    seen = {}
+    for s in spans.spans():
+        seen.setdefault(s["name"], set()).update(s["attrs"])
+    assert seen == spans_of
 
 
 def test_submit_time_is_counted_a_request():
