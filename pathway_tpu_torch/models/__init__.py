@@ -2,8 +2,9 @@
 families (the GPT-2-style ``transformer`` and the DeepSeek-V3 ``deepseek``)
 and their tokenizer. :func:`family_of` gives a config's module, whose
 ``init_kv_cache``, ``prefill_into_slot`` and ``decode_step_slots`` the
-continuous batcher calls and whose ``STEP_COUNTERS`` it reads back with
-each step's tokens; :func:`build_lm` holds either family's
+continuous batcher calls, whose ``STEP_COUNTERS`` it reads back with
+each step's tokens and whose ``GRAPH_PHASES`` it replays from CUDA graphs
+on the card; :func:`build_lm` holds either family's
 parameters on the card."""
 
 from typing import Any

@@ -67,6 +67,12 @@ from pathway_tpu_torch.models.transformer import Params, _f32_matmul, _normal, _
 # the counters of cache["counts"], in order
 STEP_COUNTERS = ("moe_assignments", "moe_experts_hit", "moe_max_load")
 
+# the phases the continuous batcher may replay from CUDA graphs
+# (``transformer.GRAPH_PHASES``): none yet. A replay runs none of the
+# Python that opens the ``lm.mla`` and ``lm.moe`` spans, so a trace could
+# not part a graphed step's kernels between them.
+GRAPH_PHASES: dict = {}
+
 
 @dataclasses.dataclass(frozen=True)
 class DeepseekConfig:

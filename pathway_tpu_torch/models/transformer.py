@@ -819,6 +819,19 @@ def decode_step_slots(
     return torch.argmax(_decode(params, cache, token, pos, pad_len, cfg), dim=-1), cache
 
 
+# the continuous batcher's phases that a CUDA graph may capture
+# (``serving.continuous_batching.PhaseGraphs``), each in a form that takes
+# the eager phase's arguments, reads nothing back, allocates and branches
+# on no tensor's value, and returns its tokens on the device: the slot
+# prefill (``prefill_into_slot``) and the slot decode step
+# (``decode_step_slots``, whose K/V write is an index operation on the
+# device)
+GRAPH_PHASES: dict[str, Callable[..., torch.Tensor]] = {
+    "prefill": prefill_slot,
+    "step": lambda *args, cfg: decode_step_slots(*args, cfg)[0],
+}
+
+
 class TransformerEncoder(nn.Module):
     """The encoder as a module: parameters cast to ``cfg.dtype`` and held
     on `device` (default: the CUDA card; raises when there is none)."""

@@ -23,10 +23,14 @@ so a copy of ``stats`` taken on another thread holds whole steps and
 prefills, and in it each phase's launch and sync sum to its total
 exactly.
 
-**Prefill graphs.** A CUDA graph replays the addresses it was captured
-on, so :class:`PrefillGraphs` keys its graphs by the prompt width and the
+**Phase graphs.** On the card and off the mesh, the phases the family
+declares in ``GRAPH_PHASES`` (the GPT-2 family: the prefill and the
+decode step) are replayed from CUDA graphs. A graph replays the
+addresses it was captured on, so :class:`PhaseGraphs` keys its graphs by
+the inputs' shapes (a prefill's width, a step's slot count) and the
 cache's buffers: a decode thread that leases another cache captures
-anew.
+anew. ``stats`` counts ``prefill_replays``/``prefill_captures`` and
+``step_replays``/``step_captures``.
 """
 
 from __future__ import annotations
@@ -90,66 +94,73 @@ class _Request:
         self.width = 0  # physical prompt width (the seq bucket)
 
 
-class PrefillGraphs:
-    """A family's capturable slot prefill (``transformer.prefill_slot``),
-    replayed from one CUDA graph per prompt width and cache buffer.
+class PhaseGraphs:
+    """One phase of a family's decode loop, replayed from one CUDA graph per
+    shape of its inputs and cache buffer.
 
-    Called as ``prefill_into_slot`` is, ``(params, ids, mask, cache, slot)``
-    with `slot` a host integer or 0-d CPU tensor, it returns (first token
-    [1] on the device, cache). The first call of a width runs the prefill
-    eagerly on a side stream, which warms it up and serves that request,
-    then captures it over static buffers of ids, mask and slot; every
-    later call copies its inputs into those buffers and replays the graph.
-    A graph holds the addresses of the cache and the parameters it was
-    captured on. The parameters are the batcher's own for its life; the
-    cache is leased anew by each decode thread, so the key holds the
+    `fn` is the phase in the form a graph can capture (the family's
+    ``GRAPH_PHASES``): it reads nothing back and returns the phase's tokens
+    on the device. A call takes the eager phase's arguments,
+    ``(params, *args)``: the one dict among `args` is the cache, and every
+    other is a tensor input (``prefill_into_slot``: ids, mask and a 0-d
+    slot; ``decode_step_slots``: the [n_slots] tokens, positions and
+    pads). It returns (tokens on the device, cache). The first call of a
+    key runs the phase eagerly on a side stream, which warms it up and
+    serves that call, then captures it over static buffers of the inputs;
+    every later call copies its inputs into those buffers and replays the
+    graph. A graph holds the addresses of the cache and the parameters it
+    was captured on. The parameters are the batcher's own for its life;
+    the cache is leased anew by each decode thread, so the key holds the
     cache's buffers: another buffer captures anew, and the graphs of the
-    old one are dropped. The
-    batcher's graphs share one private memory pool, since its decode thread
-    runs one prefill at a time, and its first token is read before the next
-    replay. ``last`` says how the latest call ran: ``"capture"`` or
-    ``"replay"``.
+    old one are dropped. One phase's graphs share one private memory pool,
+    since its decode thread replays one graph at a time and reads its
+    tokens before the next replay. ``last`` says how the latest call ran:
+    ``"capture"`` or ``"replay"``.
     """
 
     def __init__(self, fn: Any):
-        self._fn = fn  # (params, ids, mask, cache, slot tensor) -> first token [1]
-        self._graphs: dict[tuple, tuple] = {}  # key -> (graph, ids, mask, slot, token)
+        self._fn = fn  # (params, *args) -> tokens on the device
+        self._graphs: dict[tuple, tuple] = {}  # key -> (graph, static inputs, tokens)
         self._pool: Any = None
         self.last: str | None = None
 
-    def __call__(self, params: Any, ids: torch.Tensor, mask: torch.Tensor, cache: Any, slot: Any):
-        key = (ids.shape[1], *(t.data_ptr() for t in cache.values()))
-        with torch.cuda.device(ids.device):
+    def __call__(self, params: Any, *args: Any):
+        cache = next(a for a in args if isinstance(a, dict))
+        inputs = [a for a in args if a is not cache]
+        key = (tuple(x.shape for x in inputs), tuple(t.data_ptr() for t in cache.values()))
+        device = next(iter(cache.values())).device
+        with torch.cuda.device(device):
             held = self._graphs.get(key)
             if held is None:
                 self.last = "capture"
-                return self._capture(key, params, ids, mask, cache, int(slot)), cache
-            graph, s_ids, s_mask, s_slot, token = held
-            s_ids.copy_(ids)
-            s_mask.copy_(mask)
-            s_slot.fill_(int(slot))
+                return self._capture(key, params, args, device), cache
+            graph, static, tokens = held
+            for s, x in zip(static, inputs):
+                if x.dim() == 0:  # the slot, a host tensor: a fill, not a copy
+                    s.fill_(x)
+                else:
+                    s.copy_(x)
             graph.replay()
             self.last = "replay"
-            return token, cache
+            return tokens, cache
 
-    def _capture(self, key: tuple, params: Any, ids, mask, cache: Any, slot: int) -> torch.Tensor:
+    def _capture(self, key: tuple, params: Any, args: tuple, device: torch.device) -> torch.Tensor:
         # graphs over another cache buffer would write into a stale one;
         # a pool whose graphs are all gone takes no new capture, so a new
         # set of graphs starts a pool of its own
-        self._graphs = {k: g for k, g in self._graphs.items() if k[1:] == key[1:]}
+        self._graphs = {k: g for k, g in self._graphs.items() if k[1] == key[1]}
         if not self._graphs:
             self._pool = torch.cuda.graph_pool_handle()
-        s_ids, s_mask = ids.clone(), mask.clone()
-        s_slot = torch.full((), slot, dtype=torch.int64, device=ids.device)
+        staged = [a if isinstance(a, dict) else a.to(device, copy=True) for a in args]
         here, side = torch.cuda.current_stream(), torch.cuda.Stream()
         side.wait_stream(here)
         with torch.cuda.stream(side):
-            first = self._fn(params, s_ids, s_mask, cache, s_slot)
+            first = self._fn(params, *staged)
         here.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=self._pool, stream=side, capture_error_mode="thread_local"):
-            token = self._fn(params, s_ids, s_mask, cache, s_slot)
-        self._graphs[key] = (graph, s_ids, s_mask, s_slot, token)
+            tokens = self._fn(params, *staged)
+        self._graphs[key] = (graph, [a for a in staged if not isinstance(a, dict)], tokens)
         return first
 
 
@@ -251,17 +262,19 @@ class ContinuousBatcher:
         self._plane = plane or get_device_plane()
         self.name = name or self._plane.unique_name("cb")
         self.pool = self._plane.slot_pool(f"{self.name}/slots", n_slots)
+        # on the card and off the mesh, the phases the family declares
+        # capturable are replayed from CUDA graphs
+        graphed = family.GRAPH_PHASES if self.mesh is None and self.device.type == "cuda" else {}
+        self._graphs = self._step_graphs = None
         prefill = functools.partial(family.prefill_into_slot, cfg=cfg)
-        # a family with a capturable slot prefill, on the card and off the
-        # mesh, replays it from CUDA graphs
-        capturable = getattr(family, "prefill_slot", None)
-        self._graphs = None
-        if capturable is not None and self.mesh is None and self.device.type == "cuda":
-            prefill = self._graphs = PrefillGraphs(functools.partial(capturable, cfg=cfg))
+        if "prefill" in graphed:
+            prefill = self._graphs = PhaseGraphs(functools.partial(graphed["prefill"], cfg=cfg))
         self._prefill = self._plane.program(f"{self.name}/prefill", prefill)
         step = functools.partial(family.decode_step_slots, cfg=cfg)
         if self._shards is not None:
             step = self._shards.step
+        elif "step" in graphed:
+            step = self._step_graphs = PhaseGraphs(functools.partial(graphed["step"], cfg=cfg))
         self._step = self._plane.program(f"{self.name}/step", step)
         self._cache_key = ("cb_kv_cache", self.name, n_slots)
         self._lock = threading.Lock()
@@ -280,7 +293,7 @@ class ContinuousBatcher:
         self.stats = {
             "submitted": 0, "completed": 0, "decode_steps": 0, "prefills": 0, "max_queue": 0,
             "prefill_tokens": 0, "prefill_positions": 0, "prefill_replays": 0,
-            "prefill_captures": 0, "submit_seconds": 0.0,
+            "prefill_captures": 0, "step_replays": 0, "step_captures": 0, "submit_seconds": 0.0,
             **dict.fromkeys(self._ns, 0.0),
         }
         if self._counters:
@@ -441,7 +454,7 @@ class ContinuousBatcher:
                 return counts, {}
 
             nxt, _, _, mark = self._timed(
-                "step", mark, launch, tally,
+                "step", mark, launch, tally, self._step_graphs,
                 upload=lambda: torch.from_numpy(vec).to(self.device).unbind(0),
             )
             plane = _obs.PLANE
@@ -459,7 +472,7 @@ class ContinuousBatcher:
 
     def _timed(
         self, phase: str, mark: int, launch: Callable[..., torch.Tensor], tally: Callable,
-        upload: Callable[[], tuple] | None = None, **span: Any,
+        graphs: PhaseGraphs | None, upload: Callable[[], tuple] | None = None, **span: Any,
     ) -> tuple[list, int, int, int]:
         """One timed phase of the decode thread, ``step`` or ``prefill``,
         in the span ``cb.<phase>``. Its launch is `upload` (in
@@ -469,8 +482,12 @@ class ContinuousBatcher:
         wait for the device. ``tally(values, t0, span)`` gives the phase's
         counts and any further nanoseconds by key, which ``_count``
         publishes with the launch and sync split; with the plane on, the
-        split is observed in ``pathway_serving_step_seconds``. Returns
-        (values, t0, t2 the end of the sync, the next mark)."""
+        split is observed in ``pathway_serving_step_seconds``. Where the
+        phase runs from `graphs`, its call counts as a ``<phase>_replays``
+        or ``<phase>_captures``, the span's ``graphed`` says whether it
+        replayed, and with the plane on a replay counts in
+        ``pathway_serving_<phase>_graph_replays_total``. Returns (values,
+        t0, t2 the end of the sync, the next mark)."""
         with _spans.span(f"cb.{phase}", leaf=False, **span) as sp:
             t0 = time.perf_counter_ns()
             uploaded = ()
@@ -484,6 +501,11 @@ class ContinuousBatcher:
                 out = out.tolist()
             t2 = time.perf_counter_ns()
             counts, ns = tally(out, t0, sp)
+            how = graphs.last if graphs is not None else None
+            counts[f"{phase}_replays"] = int(how == "replay")
+            counts[f"{phase}_captures"] = int(how == "capture")
+            if sp.id:
+                sp.set(graphed=how == "replay")
         split = {"launch": t1 - t0, "sync": t2 - t1}
         ns.update({f"{phase}_seconds": t2 - t0, **{f"{phase}_{k}_seconds": v for k, v in split.items()}})
         mark = self._count(mark, t2, counts, **ns)
@@ -494,6 +516,11 @@ class ContinuousBatcher:
                     "pathway_serving_step_seconds", part_ns / 1e9,
                     {"pool": self.pool.name, "phase": f"{phase}_{part}"},
                     help="host seconds of a decode step or prefill, launch and token read-back apart",
+                )
+            if how == "replay":
+                plane.metrics.counter(
+                    f"pathway_serving_{phase}_graph_replays_total", self._labels,
+                    help=f"{phase}s served by replaying a captured CUDA graph",
                 )
         return out, t0, t2, mark
 
@@ -515,17 +542,13 @@ class ContinuousBatcher:
 
         def tally(first: list, t0: int, sp: Any) -> tuple[dict, dict]:
             req.token = first[0]
-            how = self._graphs.last if self._graphs is not None else None
             if sp.id:
-                sp.set(slot=slot, tokens=req.length, positions=req.width, graphed=how == "replay")
-            counts = {
-                "prefills": 1, "prefill_tokens": req.length, "prefill_positions": req.width,
-                "prefill_replays": int(how == "replay"), "prefill_captures": int(how == "capture"),
-            }
+                sp.set(slot=slot, tokens=req.length, positions=req.width)
+            counts = {"prefills": 1, "prefill_tokens": req.length, "prefill_positions": req.width}
             return counts, {"queue_seconds": t0 - req.queued_ns}
 
         _, t0, req.first_ns, mark = self._timed(
-            "prefill", mark, launch, tally, parent=req.span, request=req.id
+            "prefill", mark, launch, tally, self._graphs, parent=req.span, request=req.id
         )
         plane = _obs.PLANE
         if plane is not None:
@@ -538,11 +561,6 @@ class ContinuousBatcher:
                 "pathway_serving_first_token_seconds", (req.first_ns - req.submit_ns) / 1e9, self._labels,
                 help="submit to a request's first token",
             )
-            if self._graphs is not None and self._graphs.last == "replay":
-                m.counter(
-                    "pathway_serving_prefill_graph_replays_total", self._labels,
-                    help="prefills served by replaying a captured CUDA graph",
-                )
             _spans.add_span("cb.queue", req.queued_ns, t0, parent=req.span, request=req.id)
         req.tokens.append(req.token)
         if len(req.tokens) >= self.n_steps:  # n_steps == 1

@@ -8,7 +8,7 @@ On the CPU, at f32, it is held to the prefill over a one-row view of the
 cache sliced at a host index (the form ``prefill_into_slot`` had before):
 the first token, the slot's K/V, every other slot and the slot's positions
 past the prompt. The tests marked ``cuda`` skip without a card; there they
-hold ``serving.continuous_batching.PrefillGraphs`` (capture, replay, a new
+hold ``serving.continuous_batching.PhaseGraphs`` (capture, replay, a new
 cache buffer) to the eager prefill bit for bit in bf16, and count the
 batcher's replays. This file imports neither JAX nor the JAX package:
 
@@ -25,7 +25,7 @@ import torch
 from pathway_tpu_torch.internals import observability as obs
 from pathway_tpu_torch.internals import spans
 from pathway_tpu_torch.models import lm_config, transformer
-from pathway_tpu_torch.serving.continuous_batching import PrefillGraphs
+from pathway_tpu_torch.serving.continuous_batching import PhaseGraphs
 from pathway_tpu_torch.xpacks.llm.embedders import bucket_len, pad_left_rows
 from pathway_tpu_torch.xpacks.llm.llms import TorchLMChat
 
@@ -182,7 +182,7 @@ def test_replay_equals_the_eager_prefill_bit_for_bit(cuda_device):
     token and the whole cache equal the eager prefill's and the view
     prefill's, bit for bit."""
     cfg, params = _model(torch.bfloat16, cuda_device, d_model=128, d_ff=256)
-    graphs = PrefillGraphs(functools.partial(transformer.prefill_slot, cfg=cfg))
+    graphs = PhaseGraphs(functools.partial(transformer.prefill_slot, cfg=cfg))
     cache = _filled_cache(cfg, cuda_device)
     eager, view = _clone(cache), _clone(cache)
     calls = [(w, slot, seed) for w in WIDTHS for slot, seed in ((0, 1), (N_SLOTS - 1, 2), (1, 3))]
@@ -202,7 +202,7 @@ def test_replay_equals_the_eager_prefill_bit_for_bit(cuda_device):
 @pytest.mark.cuda
 def test_a_new_cache_buffer_recaptures(cuda_device):
     cfg, params = _model(torch.bfloat16, cuda_device, d_model=128, d_ff=256)
-    graphs = PrefillGraphs(functools.partial(transformer.prefill_slot, cfg=cfg))
+    graphs = PhaseGraphs(functools.partial(transformer.prefill_slot, cfg=cfg))
     first, second = _filled_cache(cfg, cuda_device), _filled_cache(cfg, cuda_device, seed=2)
     ids, mask = _prompt(40, seed=8, device=cuda_device)
     graphs(params, ids, mask, first, torch.tensor(0))

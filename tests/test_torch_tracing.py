@@ -180,12 +180,12 @@ def test_stats_are_numbers_with_window_differences():
 # of its attributes
 STATS = {
     "submitted", "completed", "decode_steps", "prefills", "max_queue", "prefill_tokens",
-    "prefill_positions", "prefill_replays", "prefill_captures", *TIMED,
+    "prefill_positions", "prefill_replays", "prefill_captures", "step_replays", "step_captures", *TIMED,
 }
 SPANS = {
     "cb.request": {"slot", "steps", "first_token_ms"}, "cb.queue": set(),
     "cb.prefill": {"slot", "tokens", "positions", "graphed"}, "cb.prefill.launch": set(),
-    "cb.prefill.sync": set(), "cb.step": {"rows", "keys"}, "cb.step.upload": set(),
+    "cb.prefill.sync": set(), "cb.step": {"rows", "keys", "graphed"}, "cb.step.upload": set(),
     "cb.step.launch": set(), "cb.step.sync": set(),
 }
 EXPERTS = ("moe_assignments", "moe_experts_hit", "moe_max_load", "latent_positions")
