@@ -11,8 +11,10 @@ batcher records ``cb.request`` (with ``cb.queue``), ``cb.prefill`` (with
 ``.sync``); ``TorchEmbedder`` records ``embed.batch`` over
 ``embed.tokenize``, ``.pad``, ``.upload``, ``.encode`` and ``.readback``;
 the DeepSeek-V3 family (``models/deepseek.py``) records ``lm.mla`` and
-``lm.moe`` around each layer's attention and feed-forward, inside the
-batcher's ``cb.step.launch`` and ``cb.prefill.launch``.
+``lm.moe`` around each layer's attention and feed-forward, and the Kimi
+Linear family (``models/kimi_linear.py``) ``lm.kda`` around each KDA
+layer beside them, inside the batcher's ``cb.step.launch`` and
+``cb.prefill.launch``.
 
 Spans follow the plane's switch (``observability.PLANE``): with the plane
 on they go to a bounded ring of their own beside its flight recorder,

@@ -55,6 +55,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import ClassVar
 
 import torch
 import torch.nn.functional as F
@@ -66,6 +67,8 @@ from pathway_tpu_torch.models.transformer import Params, _f32_matmul, _normal, _
 
 # the counters of cache["counts"], in order
 STEP_COUNTERS = ("moe_assignments", "moe_experts_hit", "moe_max_load")
+# no recurrent layer, so no scan counter (``kimi_linear.SCAN_COUNTER``)
+SCAN_COUNTER = None
 
 # the phases the continuous batcher may replay from CUDA graphs
 # (``transformer.GRAPH_PHASES``): none yet. A replay runs none of the
@@ -98,6 +101,13 @@ class DeepseekConfig:
     rope_theta: float = 50000.0
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
+    # RoPE on the rope dims of q and of the cache row (Kimi Linear's config has none)
+    mla_rope: ClassVar[bool] = True
+
+    @property
+    def experts_held(self) -> range:
+        """The routed experts whose weights this model holds: all of them."""
+        return range(self.n_routed_experts)
 
     @property
     def qk_head_dim(self) -> int:
@@ -166,11 +176,14 @@ def init_params(
     }
 
 
-def cast_params(params: Params, dtype: torch.dtype = torch.bfloat16) -> Params:
+def cast_params(
+    params: Params, dtype: torch.dtype = torch.bfloat16, keep: tuple[str, ...] = ("router_bias",)
+) -> Params:
     """Serving parameters: floating leaves cast once to `dtype`, but for
-    the router's correction bias, which stays f32 (the router is f32)."""
+    the leaves named in `keep`, which stay f32 (the router's correction
+    bias: the router is f32)."""
     def cast(k: str, v: torch.Tensor) -> torch.Tensor:
-        return v.to(dtype) if v.is_floating_point() and k != "router_bias" else v
+        return v.to(dtype) if v.is_floating_point() and k not in keep else v
 
     out = {k: cast(k, v) for k, v in params.items() if k != "blocks"}
     out["blocks"] = [{k: cast(k, v) for k, v in blk.items()} for blk in params["blocks"]]
@@ -224,27 +237,39 @@ def _moe(
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Routed plus shared experts of tokens x [t, d]. The t * k choices
     are sorted by expert and each projection is one grouped product over
-    the experts (``offs``: each expert's end in the sorted rows). With
-    `counted` [t] bool, also returns each expert's tokens among those rows
-    ([experts] int64), never read on the host here."""
+    the experts (``offs``: each expert's end in the sorted rows). Where
+    the model holds a share of the experts (``cfg.experts_held``, the
+    weights' first axis), the router still chooses among all of them with
+    the weights renormalized over all k choices, and a choice of an expert
+    held elsewhere is dropped: it sorts after every held expert's rows,
+    past the last offset, and adds nothing; the shared experts are always
+    added. With `counted` [t] bool, also returns each held expert's tokens
+    among those rows ([held experts] int64), never read on the host here."""
     dt = cfg.dtype
     t, k = x.shape[0], cfg.n_experts_per_tok
     idx, w = route(x, blk, cfg)
+    held = cfg.experts_held
+    n = len(held)
+    if n < cfg.n_routed_experts:  # the held experts' own numbers; the rest sort last, as n
+        idx = torch.where((idx >= held.start) & (idx < held.stop), idx - held.start, n)
     flat = idx.reshape(-1)
     order = torch.argsort(flat, stable=True)
-    experts = torch.arange(cfg.n_routed_experts, device=x.device)
+    experts = torch.arange(n, device=x.device)
     offs = torch.searchsorted(flat[order], experts, right=True, out_int32=True)
     tok = order // k
     gu = torch._grouped_mm(x[tok], blk["experts_gate_up"].to(dt), offs=offs)
     g, u = gu.chunk(2, dim=-1)
     y = torch._grouped_mm((F.silu(g.float()) * u.float()).to(dt), blk["experts_down"].to(dt), offs=offs)
+    part = y.float() * w.reshape(-1)[order, None]
+    if n < cfg.n_routed_experts:  # rows past the last offset hold no product
+        part = torch.where(flat[order, None] < n, part, 0.0)
     routed = torch.zeros((t, x.shape[1]), dtype=torch.float32, device=x.device)
-    routed.index_add_(0, tok, y.float() * w.reshape(-1)[order, None])
+    routed.index_add_(0, tok, part)
     out = routed.to(dt) + _swiglu(x, blk["shared_gate_up"], blk["shared_down"], dt)
     load = None
     if counted is not None:
-        chosen = torch.where(counted[:, None], idx, cfg.n_routed_experts).reshape(-1)
-        load = torch.zeros(cfg.n_routed_experts + 1, dtype=torch.int64, device=x.device)
+        chosen = torch.where(counted[:, None], idx, n).reshape(-1)
+        load = torch.zeros(n + 1, dtype=torch.int64, device=x.device)
         load = load.index_add_(0, chosen, torch.ones_like(chosen))[:-1]
     return out, load
 
@@ -260,14 +285,18 @@ def _ffn(x: torch.Tensor, blk: Params, cfg: DeepseekConfig, counted=None):
 
 def _latent(x: torch.Tensor, blk: Params, cfg: DeepseekConfig, cos, sin):
     """q [..., h, nope + rope] (q_pe rotated) and the cache row [...,
-    kv_lora_rank + rope] (normed c_kv, rotated k_pe) of x [..., d]."""
+    kv_lora_rank + rope] (normed c_kv, rotated k_pe) of x [..., d]. Where
+    ``cfg.mla_rope`` is False, q_pe and k_pe stay as the projections give
+    them (`cos` and `sin` unused)."""
     dt, r = cfg.dtype, cfg.kv_lora_rank
     q = torch.matmul(x, blk["wq"].to(dt)).unflatten(-1, (cfg.n_heads, cfg.qk_head_dim))
-    q_pe = _rope(q[..., cfg.qk_nope_head_dim:], cos[..., None, :], sin[..., None, :])
-    q = torch.cat((q[..., : cfg.qk_nope_head_dim], q_pe), dim=-1)
+    if cfg.mla_rope:
+        q_pe = _rope(q[..., cfg.qk_nope_head_dim:], cos[..., None, :], sin[..., None, :])
+        q = torch.cat((q[..., : cfg.qk_nope_head_dim], q_pe), dim=-1)
     kva = torch.matmul(x, blk["wkv_a"].to(dt))
     c = _rmsnorm(kva[..., :r], blk["kv_norm"], cfg.norm_eps)
-    return q, torch.cat((c, _rope(kva[..., r:], cos, sin)), dim=-1)
+    k_pe = _rope(kva[..., r:], cos, sin) if cfg.mla_rope else kva[..., r:]
+    return q, torch.cat((c, k_pe), dim=-1)
 
 
 def _kv_b(blk: Params, cfg: DeepseekConfig) -> tuple[torch.Tensor, torch.Tensor]:
@@ -500,6 +529,10 @@ class DeepseekLM(nn.Module):
     when there is none). Without `params` they are random from
     `generator` (default seed 0)."""
 
+    # the family's parameter makers (``kimi_linear.KimiLinearLM`` has its own)
+    _init_params = staticmethod(init_params)
+    _cast_params = staticmethod(cast_params)
+
     def __init__(
         self,
         cfg: DeepseekConfig,
@@ -511,8 +544,8 @@ class DeepseekLM(nn.Module):
         super().__init__()
         dev = resolve_device(device)
         if params is None:
-            params = init_params(generator or torch.Generator().manual_seed(0), cfg, dtype=cfg.dtype)
-        params = cast_params(params, cfg.dtype)
+            params = self._init_params(generator or torch.Generator().manual_seed(0), cfg, dtype=cfg.dtype)
+        params = self._cast_params(params, cfg.dtype)
         self.cfg = cfg
 
         def held(t: torch.Tensor) -> nn.Parameter:

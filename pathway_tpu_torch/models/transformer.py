@@ -565,6 +565,9 @@ def make_train_step(cfg: TransformerConfig, learning_rate: float = 1e-3):
 # the counters a decode step leaves in the cache for the batcher to read
 # back with its tokens: none in this family (``deepseek.STEP_COUNTERS``)
 STEP_COUNTERS: tuple[str, ...] = ()
+# the batcher's host count of tokens a recurrent layer scans: no such layer
+# here (``kimi_linear.SCAN_COUNTER``)
+SCAN_COUNTER: str | None = None
 
 
 def init_kv_cache(

@@ -21,7 +21,10 @@ the wave-aligned path.
 step's and each prefill's counts and nanoseconds in one ``dict.update``,
 so a copy of ``stats`` taken on another thread holds whole steps and
 prefills, and in it each phase's launch and sync sum to its total
-exactly.
+exactly. Where the family declares a ``SCAN_COUNTER`` (the Kimi Linear
+family's ``kda_tokens``), ``stats`` counts the tokens its recurrent
+layers scan, each prefill's prompt tokens and each step's rows, and with
+the plane on ``pathway_lm_<counter>_total{pool, phase=prefill|decode}``.
 
 **Phase graphs.** On the card and off the mesh, the phases the family
 declares in ``GRAPH_PHASES`` (the GPT-2 family: the prefill and the
@@ -240,8 +243,10 @@ class ContinuousBatcher:
         self.tokenizer = tokenizer
         self.n_steps = n_steps
         family = self._family = family_of(cfg)
-        # the counters a step reads back with its tokens
+        # the counters a step reads back with its tokens, and the host's
+        # count of tokens the family's recurrent layers scan
         self._counters = family.STEP_COUNTERS
+        self._scan = family.SCAN_COUNTER
         self.mesh = self._shards = None
         if mesh_span if mesh_span is not None else mesh_slots_on():
             if family is not transformer:
@@ -298,6 +303,8 @@ class ContinuousBatcher:
         }
         if self._counters:
             self.stats.update(dict.fromkeys((*self._counters, "latent_positions"), 0))
+        if self._scan:
+            self.stats[self._scan] = 0
         self._labels = {"pool": self.pool.name}
         _obs.maybe_enable_from_env()  # the plane's switch holds outside pw.run too
 
@@ -447,6 +454,8 @@ class ContinuousBatcher:
                 if sp.id:  # recording: the rows and their real keys before this step
                     sp.set(rows=len(batch), keys=sum(r.length + r.steps_done for r in batch.values()))
                 counts = {"decode_steps": 1}
+                if self._scan:
+                    counts[self._scan] = len(batch)
                 if self._counters:
                     counts.update(zip(self._counters, nxt[self.n_slots:]))
                     counts["latent_positions"] = sum(r.length + r.steps_done + 1 for r in batch.values())
@@ -463,6 +472,7 @@ class ContinuousBatcher:
                     "pathway_serving_decode_steps_total", self._labels,
                     help="continuous-batching decode steps dispatched",
                 )
+                self._count_scan(plane, "decode", len(batch))
             for slot, req in batch.items():
                 req.steps_done += 1
                 req.token = nxt[slot]
@@ -545,6 +555,8 @@ class ContinuousBatcher:
             if sp.id:
                 sp.set(slot=slot, tokens=req.length, positions=req.width)
             counts = {"prefills": 1, "prefill_tokens": req.length, "prefill_positions": req.width}
+            if self._scan:
+                counts[self._scan] = req.length
             return counts, {"queue_seconds": t0 - req.queued_ns}
 
         _, t0, req.first_ns, mark = self._timed(
@@ -562,10 +574,20 @@ class ContinuousBatcher:
                 help="submit to a request's first token",
             )
             _spans.add_span("cb.queue", req.queued_ns, t0, parent=req.span, request=req.id)
+            self._count_scan(plane, "prefill", req.length)
         req.tokens.append(req.token)
         if len(req.tokens) >= self.n_steps:  # n_steps == 1
             self._finish(slot, req)
         return mark
+
+    def _count_scan(self, plane: Any, phase: str, tokens: int) -> None:
+        """With the plane on, the tokens a phase's recurrent layers scanned
+        (the family's ``SCAN_COUNTER``, if it declares one)."""
+        if self._scan:
+            plane.metrics.counter(
+                f"pathway_lm_{self._scan}_total", {**self._labels, "phase": phase}, inc=tokens,
+                help="tokens the model's recurrent layers scanned: prompt tokens and decode rows",
+            )
 
     def _finish(self, slot: int, req: _Request) -> None:
         with self._lock:

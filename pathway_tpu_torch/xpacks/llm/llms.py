@@ -25,6 +25,7 @@ from pathway_tpu_torch.internals.expression import ColumnExpression
 from pathway_tpu_torch.internals.json import Json
 from pathway_tpu_torch.models import build_lm, family_of, transformer
 from pathway_tpu_torch.models.deepseek import DeepseekConfig
+from pathway_tpu_torch.models.kimi_linear import KimiLinearConfig
 from pathway_tpu_torch.models.tokenizer import HashTokenizer
 from pathway_tpu_torch.models.transformer import (
     Params,
@@ -206,8 +207,10 @@ class HFPipelineChat(BaseChat):
 class TorchLMChat(BaseChat):
     """Generation on the card (or on `device`) with one of the port's
     causal LMs, chosen by the config's type (``models.family_of``): the
-    GPT-2-style ``TransformerConfig`` (the default, ``lm_config``) or the
-    DeepSeek-V3 ``DeepseekConfig`` (latent attention and routed experts).
+    GPT-2-style ``TransformerConfig`` (the default, ``lm_config``), the
+    DeepSeek-V3 ``DeepseekConfig`` (latent attention and routed experts)
+    or the Kimi Linear ``KimiLinearConfig`` (KDA layers and their
+    recurrent state beside latent attention, a share of the experts held).
 
     Pass `params` (e.g. from ``models.convert.params_from_numpy``) for a
     given model; without them the weights are random from `generator`
@@ -219,13 +222,14 @@ class TorchLMChat(BaseChat):
     ``continuous_batching=False`` or any ``temperature > 0`` use the
     wave-aligned coalescer instead: one left-padded ``generate_serving``
     per wave, the same tokens per request at temperature 0. The
-    DeepSeek-V3 family serves through the slot scheduler only: it raises
-    ``NotImplementedError`` for the wave-aligned path and for sampling.
+    DeepSeek-V3 and Kimi Linear families serve through the slot scheduler
+    only: they raise ``NotImplementedError`` for the wave-aligned path and
+    for sampling.
     """
 
     def __init__(
         self,
-        config: TransformerConfig | DeepseekConfig | None = None,
+        config: TransformerConfig | DeepseekConfig | KimiLinearConfig | None = None,
         params: Params | None = None,
         tokenizer: Any = None,
         max_new_tokens: int = 64,

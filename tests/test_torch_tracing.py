@@ -22,7 +22,7 @@ import torch
 
 from pathway_tpu_torch.internals import observability as obs
 from pathway_tpu_torch.internals import spans
-from pathway_tpu_torch.models import DeepseekConfig, embedder_config, lm_config
+from pathway_tpu_torch.models import DeepseekConfig, KimiLinearConfig, embedder_config, lm_config
 from pathway_tpu_torch.xpacks.llm.embedders import TorchEmbedder, bucket_len
 from pathway_tpu_torch.xpacks.llm.llms import TorchLMChat
 
@@ -194,9 +194,13 @@ TINY_MLA_MOE = dict(
     qk_nope_head_dim=8, qk_rope_head_dim=8, v_head_dim=8, n_routed_experts=4, n_experts_per_tok=2,
     n_shared_experts=1, moe_d_ff=16, first_k_dense=1,
 )
+TINY_KIMI = dict(
+    TINY_MLA_MOE, n_layers=4, kda_layers=(1, 2, 3), kda_heads=2, kda_head_dim=8, kda_gate_rank=8,
+    n_routed_experts=8, experts_held=range(2, 6),
+)
 
 
-@pytest.mark.parametrize("family", ["transformer", "deepseek"])
+@pytest.mark.parametrize("family", ["transformer", "deepseek", "kimi_linear"])
 def test_stats_keys_and_spans_of_a_request_are_pinned(family):
     if family == "deepseek":
         chat = TorchLMChat(
@@ -205,6 +209,15 @@ def test_stats_keys_and_spans_of_a_request_are_pinned(family):
         )
         stats, spans_of = STATS | set(EXPERTS), {
             **SPANS, "cb.step": SPANS["cb.step"] | {"decode_steps", *EXPERTS}, "lm.mla": set(), "lm.moe": set(),
+        }
+    elif family == "kimi_linear":
+        chat = TorchLMChat(
+            config=KimiLinearConfig(dtype=torch.float32, **TINY_KIMI), device="cpu", max_new_tokens=4,
+            decode_slots=2, continuous_batching=True,
+        )
+        stats, spans_of = STATS | set(EXPERTS) | {"kda_tokens"}, {
+            **SPANS, "cb.step": SPANS["cb.step"] | {"decode_steps", "kda_tokens", *EXPERTS},
+            "lm.kda": set(), "lm.mla": set(), "lm.moe": set(),
         }
     else:
         chat, stats, spans_of = _chat(), STATS, SPANS
